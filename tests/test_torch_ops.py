@@ -220,10 +220,29 @@ def test_fir_apply_streaming(rng, T, D):
 
 
 @pytest.mark.parametrize("mode", ["poly", "fft"])
-def test_fir_modes_not_ported_raise(mode):
-    x = torch.zeros(100, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfir.fir_extended(x, torch.ones(5), 2, mode)
+@pytest.mark.parametrize("combo", ["FF", "CF", "CC", "FC"])
+def test_fir_extended_poly_fft_batched(rng, mode, combo):
+    """'poly' (K4's plain version) and 'fft' (overlap-save on torch.fft)
+    against JAX's fir_extended, on (2, 3, L) batched streams."""
+    T, D, M = 65, 4, 700
+    L = (T - 1) + M * D + 3
+    x = crandn(rng, 2, 3, L) if combo[0] == "C" else rng.standard_normal((2, 3, L)).astype(np.float32)
+    _, h = _fir_inputs(rng, combo, T, 1)
+    ref = np_of(jfir.fir_extended(jnp_of(x), jnp_of(h), D, mode))
+    got = tfir.fir_extended(torch.from_numpy(x), torch.from_numpy(h), D, mode).numpy()
+    assert got.shape == (2, 3, M)
+    close_to_peak(got, ref)
+
+
+@pytest.mark.parametrize("mode", ["poly", "fft"])
+def test_fir_modes_poly_fft_long_and_short(rng, mode):
+    """Modes 'poly' and 'fft' at K4's AM shapes, and with fewer outputs
+    than one FFT segment holds."""
+    for T, D, M in ((868, 250, 40), (46, 2, 900), (33, 1, 5)):
+        x, h = _fir_inputs(rng, "CF", T, (T - 1) + M * D)
+        ref = np_of(jfir.fir_extended(jnp_of(x), jnp_of(h), D, mode))
+        got = tfir.fir_extended(torch.from_numpy(x), torch.from_numpy(h), D, mode).numpy()
+        close_to_peak(got, ref)
 
 
 # -- design ------------------------------------------------------------------------

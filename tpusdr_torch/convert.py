@@ -3,18 +3,25 @@
 The JAX package's carries are pytrees of planar ``Complex(re, im)`` pairs,
 float32 arrays and uint32 NCO phases.  Taken to numpy with
 ``jax.tree.map(np.asarray, state)``, pairs arrive as 2-tuples of float32
-arrays and phases as uint32 scalars.  ``state_from_numpy`` maps that onto
-the port's carries (complex64 tensors, float32 tensors, Python-int
-phases); ``state_to_numpy`` goes back, so carries compare value for value.
+arrays, phases as uint32 scalars and sample counts as int32 scalars.
+``state_from_numpy`` maps that onto the port's carries (complex64 tensors,
+float32 tensors, Python-int phases, int32 tensors); ``state_to_numpy`` goes
+back, so carries compare value for value.  The AM chain's carries are of
+these kinds too: ``DcBlock``'s {"x1", "y1"} float32 arrays, a
+``SampleCountMonitor``'s int32 count; ``IqToComplex`` and ``QuadAmDemod``
+carry nothing.
 
 ``block_params_from_numpy`` builds a port block from the numbers of a JAX
 block (taps, NCO increment, gain, IIR coefficients) rather than from its
-design parameters alone.
+design parameters alone; a ``Fir``'s mode, an ``IqToComplex``'s
+input_format and a ``DcBlock``'s pole are constructor arguments like any
+other.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from tpusdr_torch.graph.block import Block
 from tpusdr_torch.graph.chain import Chain
@@ -44,6 +51,8 @@ def state_from_numpy(tree, device=None):
     a = np.asarray(tree)
     if a.dtype == np.uint32:
         return int(a)
+    if a.dtype == np.int32:
+        return torch.from_numpy(a.copy()).to(device)
     return cplx.from_numpy(a, device)
 
 

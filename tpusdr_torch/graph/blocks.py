@@ -1,6 +1,9 @@
-"""The blocks of the FM receiver's main path (port of tpusdr/graph/blocks.py:
-FreqShift :298, Fir :168, FreqShiftFir :372, FusedFmDemod :526,
-QuadFmDemod :774, Deemphasis :901, Resampler :953).
+"""The blocks of the FM and AM receivers (port of tpusdr/graph/blocks.py:
+Int8ToFloat :85, Int16ToFloat :99, IqToComplex :111, Fir :168,
+FreqShift :298, FreqShiftFir :372, FusedFmDemod :526, QuadFmDemod :774,
+QuadAmDemod and the "QuadDemod" node :796-819, Magnitude :822,
+AddConst :832, AddConstToVectorLength :846, DcBlock :857,
+SampleCountMonitor :886, Deemphasis :901, Resampler :953).
 
 Complex streams are complex64 tensors; NCO phases are Python ints (uint32
 values) in the carry.  Taps are registered buffers.
@@ -16,8 +19,9 @@ import torch
 from tpusdr_torch.graph.block import Block
 from tpusdr_torch.graph.registry import register_block
 from tpusdr_torch.kernels import fir_banded
+from tpusdr_torch.kernels.fir_poly import fir_decim
 from tpusdr_torch.kernels.fm_fused import fused_fm_demod
-from tpusdr_torch.ops import cplx, demod, fir, iir, mix, osc
+from tpusdr_torch.ops import convert, cplx, demod, fir, iir, mix, osc
 from tpusdr_torch.ops import resample as resops
 from tpusdr_torch.utils.numerics import cdiv
 
@@ -32,6 +36,74 @@ def _mod_taps_np(taps: np.ndarray, inc: int) -> np.ndarray:
     k = (T - 1 - np.arange(T)) * int(inc) % _U32
     ang = k.astype(np.float64) * (2.0 * np.pi / 2.0**32)
     return (taps * np.exp(1j * ang)).astype(np.complex64)
+
+
+# -- format conversion ----------------------------------------------------------
+
+
+@register_block("Int8ToFloat")
+class Int8ToFloat(Block):
+    """int8 -> normalized float (Int8ToFloat.cpp:89-94)."""
+
+    in_dtype = torch.int8
+    out_dtype = torch.float32
+
+    def __init__(self, scale: float = convert.INT8_SCALE):
+        super().__init__()
+        self.scale = scale
+
+    def apply(self, state, x):
+        return state, convert.int8_to_float(x, self.scale)
+
+
+@register_block("Int16ToFloat")
+class Int16ToFloat(Block):
+    in_dtype = torch.int16
+    out_dtype = torch.float32
+
+    def __init__(self, scale: float = convert.INT16_SCALE):
+        super().__init__()
+        self.scale = scale
+
+    def apply(self, state, x):
+        return state, convert.int16_to_float(x, self.scale)
+
+
+@register_block("IqToComplex")
+class IqToComplex(Block):
+    """IQ wire format -> complex64 (the reference's memcpy + Int8ToFloat
+    front end).  Integer IQ arrives as packed words, one per complex
+    sample (int8 pairs as int16 words, int16 pairs as int32 words), so the
+    rate is 1:1 and the granule 1; 'float32' is interleaved scalars (1:2).
+    A raw int8 / int16 array raises, as in the JAX package."""
+
+    out_dtype = torch.complex64
+
+    def __init__(self, input_format: str = "int8"):
+        super().__init__()
+        self.input_format = input_format
+        self.in_dtype = {"int8": torch.int16, "int16": torch.int32, "float32": torch.float32}[input_format]
+        self.up, self.down = (1, 2) if input_format == "float32" else (1, 1)
+
+    def apply(self, state, x):
+        if self.input_format == "int8":
+            if x.dtype == torch.int8:
+                raise TypeError(
+                    "IqToComplex('int8') takes packed int16 words (one per complex "
+                    "sample); view the wire bytes with convert.pack_int8_words"
+                )
+            return state, convert.int8_words_to_complex(x)
+        if self.input_format == "int16":
+            if x.dtype == torch.int16:
+                raise TypeError(
+                    "IqToComplex('int16') takes packed int32 words; view the wire "
+                    "bytes with convert.pack_int16_words"
+                )
+            return state, convert.int16_words_to_complex(x)
+        return state, convert.interleaved_to_complex(x)
+
+
+# -- filtering and mixing -----------------------------------------------------------
 
 
 @register_block("FreqShift")
@@ -64,13 +136,13 @@ class FreqShift(Block):
 @register_block("Fir")
 class Fir(Block):
     """Decimating FIR (Fir.cpp + gsdrFirFF/FC/CC/CF).  Modes as in
-    ``ops.fir``; 'pallas' (the TPU kernel ``fir_decim_pallas``) is not
-    ported yet."""
+    ``ops.fir``, plus 'pallas': kernel K4 (``kernels.fir_poly.fir_decim``)
+    for a single complex stream with real taps and D >= 2, and the 'poly'
+    path for every other input (the JAX package's shape rule,
+    blocks.py:264-284)."""
 
-    def __init__(self, taps, decimation: int = 1, signal_type: str = "FloatComplex", mode: fir.FirMode = "auto"):
+    def __init__(self, taps, decimation: int = 1, signal_type: str = "FloatComplex", mode: str = "auto"):
         super().__init__()
-        if mode in ("pallas", "poly", "fft"):
-            raise fir._not_ported(mode)
         self.register_buffer("taps", cplx.from_numpy(np.asarray(taps)))
         self.decimation = int(decimation)
         self.mode = mode
@@ -86,7 +158,26 @@ class Fir(Block):
         )
 
     def apply(self, state, x):
+        if self.mode == "pallas":
+            return self._apply_pallas(state, x)
         return fir.fir_apply(state, x, self.taps, self.decimation, self.mode)
+
+    def _pallas_eligible(self, x) -> bool:
+        """Complex input, real taps, decimation >= 2, unbatched stream."""
+        return (
+            x.is_complex()
+            and x.dim() == 1
+            and self.decimation >= 2
+            and not self.taps.is_complex()
+        )
+
+    def _apply_pallas(self, state, x):
+        if not self._pallas_eligible(x):
+            return fir.fir_apply(state, x, self.taps, self.decimation, "poly")
+        ext = torch.cat([state, x])
+        y = fir_decim(ext, self.taps, self.decimation)
+        T = self.taps.shape[-1]
+        return ext[ext.shape[-1] - (T - 1) :].clone(), y
 
 
 @register_block("FreqShiftFir")
@@ -96,7 +187,10 @@ class FreqShiftFir(Block):
     y[m] = e^{j theta(mD)} * sum_k (h_rev[k] e^{j k w}) x[mD + k]: the
     shift lives in the complex taps, and the only other work is one
     rotation at the decimated rate.  In modes 'auto' and 'banded' a single
-    stream goes through the D-FIR kernel (history form) on the card."""
+    stream goes through the D-FIR kernel (history form) on the card; modes
+    'mxu', 'conv', 'poly' and 'fft' run ``ops.fir``.  There is no 'pallas'
+    mode: the folded taps are complex and kernel K4 takes real taps.  (In
+    the JAX package the call fails with KeyError: 'pallas'.)"""
 
     out_dtype = torch.complex64
 
@@ -106,8 +200,12 @@ class FreqShiftFir(Block):
         taps = np.asarray(taps)
         if np.iscomplexobj(taps):
             raise ValueError("FreqShiftFir folds the shift itself; taps must be real")
-        if mode in ("pallas", "poly", "fft"):
-            raise fir._not_ported(mode)
+        if mode == "pallas":
+            raise ValueError(
+                "FreqShiftFir has no 'pallas' mode: its folded taps are complex and "
+                "the K4 kernel takes real taps; build the receiver with "
+                "fold_shift=False to run FreqShift -> Fir(mode='pallas')"
+            )
         self.sample_rate = float(sample_rate)
         self.frequency = float(frequency)
         self.decimation = int(decimation)
@@ -282,6 +380,109 @@ class QuadFmDemod(Block):
 
     def apply(self, state, x):
         return demod.quad_fm_demod_apply(state, x, self.gain)
+
+
+@register_block("QuadAmDemod")
+class QuadAmDemod(Block):
+    """AM envelope demod (QuadAmDemod.cpp:81-108).  Stateless, 1:1."""
+
+    out_dtype = torch.float32
+
+    def apply(self, state, x):
+        return state, demod.quad_am_demod(x)
+
+
+def make_quad_demod(modulation: str, **kw) -> Block:
+    """The reference's "QuadDemod" node, dispatching on modulation."""
+    m = modulation.lower()
+    if m in ("fm", "modulation_fm"):
+        return QuadFmDemod(**kw)
+    if m in ("am", "modulation_am"):
+        kw.pop("sample_rate", None)
+        kw.pop("channel_width", None)
+        return QuadAmDemod()
+    raise ValueError(f"unknown modulation {modulation!r}")
+
+
+register_block("QuadDemod")(make_quad_demod)
+
+
+@register_block("Magnitude")
+class Magnitude(Block):
+    """|z| (Magnitude.cpp:91-96)."""
+
+    out_dtype = torch.float32
+
+    def apply(self, state, x):
+        return state, demod.magnitude(x)
+
+
+@register_block("AddConst")
+class AddConst(Block):
+    """Scalar add (AddConst.cpp:99)."""
+
+    in_dtype = torch.float32
+    out_dtype = torch.float32
+
+    def __init__(self, add_value: float = 0.0):
+        super().__init__()
+        self.add_value = float(add_value)
+
+    def apply(self, state, x):
+        return state, demod.add_const(x, self.add_value)
+
+
+@register_block("AddConstToVectorLength")
+class AddConstToVectorLength(Block):
+    """Magnitude bias of complex samples (AddConstToVectorLength.cpp:97-103)."""
+
+    def __init__(self, add_value_to_magnitude: float = 0.0):
+        super().__init__()
+        self.add_value = float(add_value_to_magnitude)
+
+    def apply(self, state, x):
+        return state, demod.add_const_to_vector_length(x, self.add_value)
+
+
+@register_block("DcBlock")
+class DcBlock(Block):
+    """DC blocker y[n] = x[n] - x[n-1] + a*y[n-1]: strips the carrier level
+    after AM envelope detection.  Carry: ``x1`` (last input), ``y1`` (last
+    output); the pole runs on ``iir.single_pole_apply`` with b = 1."""
+
+    in_dtype = torch.float32
+    out_dtype = torch.float32
+    history = 1
+    time_shardable = False
+
+    def __init__(self, pole: float = 0.999):
+        super().__init__()
+        self.pole = float(pole)
+
+    def init_state(self, batch_shape=(), device=None):
+        return {
+            "x1": torch.zeros(tuple(batch_shape) + (1,), dtype=torch.float32, device=device),
+            "y1": iir.single_pole_init(batch_shape, device),
+        }
+
+    def apply(self, state, x):
+        x_prev = torch.cat([state["x1"], x[..., :-1]], dim=-1)
+        y1, y = iir.single_pole_apply(state["y1"], x - x_prev, self.pole, 1.0)
+        return {"x1": x[..., -1:].clone(), "y1": y1}, y
+
+
+@register_block("ReadByteCountMonitor")
+@register_block("SampleCountMonitor")
+class SampleCountMonitor(Block):
+    """Pass-through sample counter (ReadByteCountMonitor.cpp:44-63).  The
+    count is an int32 tensor in the carry, on the stream's device, so
+    counting needs no device sync."""
+
+    def init_state(self, batch_shape=(), device=None):
+        return torch.zeros((), dtype=torch.int32, device=device)
+
+    def apply(self, state, x):
+        return state + x.shape[-1], x
 
 
 @register_block("Deemphasis")

@@ -1,1 +1,1 @@
-"""tpusdr_torch.io — host-side sources."""
+"""tpusdr_torch.io — host-side sources and sinks."""

@@ -1,7 +1,8 @@
 """Build the CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ``csrc/`` expose a plain C interface, so they compile in
-seconds without PyTorch's headers.  The shared library lands in
+seconds without PyTorch's headers: one nvcc per source, all started
+together, then one link.  The shared library lands in
 ``build/tpusdr_torch/`` at the root of the checkout, named by a hash of
 the sources and flags, and is built at first use.  A failed build raises.
 """
@@ -19,7 +20,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpusdr_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # register / shared-memory / spill report, kept in the log
 )
 
@@ -51,14 +52,25 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objs)
+    ]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in compiles]
+    logs = [(c, p.communicate()[0], p.returncode) for c, p in zip(compiles, procs)]
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if all(rc == 0 for _, _, rc in logs):
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append((link, proc.stdout, proc.returncode))
+    (BUILD_DIR / "build.log").write_text("".join(" ".join(c) + "\n" + text for c, text, _ in logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(c, text, rc) for c, text, rc in logs if rc != 0]
+    if failed:
+        c, text, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(c)}\n{text}")
     os.replace(tmp, out)
     return out
 
@@ -70,18 +82,22 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.tpusdr_decim_fir.argtypes = [
-            p, i64, p, i64, p, i, i, i, i64, i64, p, i, p,
+            p, i64, p, i64, p, i, i, i, i64, i64, i, i, p, i, p,
         ]
         lib.tpusdr_decim_fir.restype = i
-        lib.tpusdr_decim_fir_smem.argtypes = [i, i, i]
+        lib.tpusdr_decim_fir_smem.argtypes = [i, i, i, i]
         lib.tpusdr_decim_fir_smem.restype = i64
         lib.tpusdr_fm_fused.argtypes = [
             p, i64, p, i, i, ctypes.c_uint32, ctypes.c_uint32,
-            ctypes.c_float, i64, p, i, p,
+            ctypes.c_float, i64, i, i, p, i, p,
         ]
         lib.tpusdr_fm_fused.restype = i
-        lib.tpusdr_fm_fused_smem.argtypes = [i, i]
+        lib.tpusdr_fm_fused_smem.argtypes = [i, i, i]
         lib.tpusdr_fm_fused_smem.restype = i64
+        lib.tpusdr_fir_poly.argtypes = [p, p, i, i, i64, i, p, i, p]
+        lib.tpusdr_fir_poly.restype = i
+        lib.tpusdr_fir_poly_smem.argtypes = [i]
+        lib.tpusdr_fir_poly_smem.restype = i64
         lib.tpusdr_max_smem_optin.argtypes = [i]
         lib.tpusdr_max_smem_optin.restype = i64
         lib.tpusdr_error_string.argtypes = [i]

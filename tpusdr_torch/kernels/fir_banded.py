@@ -13,6 +13,10 @@ The two entry points keep the JAX signatures and output contracts.  A
 CUDA tensor launches the kernel; a CPU tensor takes the plain version, the
 banded ``torch.matmul`` form of ``ops.fir._fir_mxu_cc``.
 
+``decim_fir_plan`` is the card's shape rule: it picks the kernel's tile
+(outputs per block) and tap chunk so that one block's shared memory stays
+within an H100's 232,448 bytes for every shape the receivers build.
+
 The module also carries the JAX package's pure shape rules (``_plan``,
 ``eligible``, ``prelude_plan``, ``prelude_eligible``), thresholds
 unchanged, so that ``FusedFmDemod`` picks the same branch and granule as
@@ -35,6 +39,9 @@ _C = 128
 _MAX_W_BYTES = 8 << 20
 _RP_CANDIDATES = (200, 160, 120, 80, 40, 32, 24, 16, 8)
 _GUARD = 8  # prelude rows carried across ticks
+
+SMEM_LIMIT = 232_448  # shared memory one block may opt into on an H100
+TILES = (64, 32, 16, 8)  # outputs per block the kernel is built for
 
 
 # -- the JAX package's shape rules (fir_banded_pallas.py:94-116, 392-436) --
@@ -85,6 +92,38 @@ def prelude_eligible(T: int, D: int, N: int, complex_taps: bool) -> bool:
     return _pick_rp(N // G, G, w_bytes) is not None
 
 
+# -- the card's shape rule -------------------------------------------------
+
+
+def decim_fir_smem(D: int, complex_taps: bool, tile: int, chunk: int) -> int:
+    """Shared memory of one D-FIR block: the window of ``tile`` outputs over
+    ``chunk`` taps, then the chunk's taps (csrc/decim_fir.cu smem_bytes)."""
+    return ((tile - 1) * D + chunk) * 8 + chunk * (8 if complex_taps else 4)
+
+
+def tap_chunk(T: int, fixed_bytes: int, bytes_per_tap: int) -> int:
+    """T if all taps fit beside ``fixed_bytes``, else the largest multiple
+    of 32 taps that does (the kernel then loops over the taps in chunks)."""
+    room = (SMEM_LIMIT - fixed_bytes) // bytes_per_tap
+    if room >= T:
+        return T
+    chunk = room // 32 * 32
+    if chunk < 32:
+        raise ValueError(f"no tile fits {SMEM_LIMIT} B of shared memory ({fixed_bytes} B fixed)")
+    return chunk
+
+
+def decim_fir_plan(T: int, D: int, complex_taps: bool) -> tuple[int, int]:
+    """(tile, chunk) of a D-FIR launch: the largest tile whose window and
+    all T taps fit ``SMEM_LIMIT``, else the smallest tile with taps taken
+    in chunks.  The main WBFM shape (546, /50) keeps the 64-output tile."""
+    for tile in TILES:
+        if decim_fir_smem(D, complex_taps, tile, T) <= SMEM_LIMIT:
+            return tile, T
+    tile = TILES[-1]
+    return tile, tap_chunk(T, (tile - 1) * D * 8, 16 if complex_taps else 12)
+
+
 # -- kernel and plain version ----------------------------------------------
 
 
@@ -119,7 +158,8 @@ def _launch(hist, x, taps, D: int, s0: int, M: int) -> torch.Tensor:
     if taps.dtype not in (torch.float32, torch.complex64) or taps.dim() != 1:
         raise ValueError("decim_fir: taps must be 1-D float32 or complex64")
     cplx_taps = int(taps.is_complex())
-    smem = lib.tpusdr_decim_fir_smem(T, D, cplx_taps)
+    tile, chunk = decim_fir_plan(T, D, bool(cplx_taps))
+    smem = lib.tpusdr_decim_fir_smem(D, cplx_taps, tile, chunk)
     dev, stream = launch_target(x, smem, f"decim_fir (T={T}, D={D})")
     x = x.contiguous()
     hist = hist.contiguous() if hist is not None else None
@@ -136,6 +176,8 @@ def _launch(hist, x, taps, D: int, s0: int, M: int) -> torch.Tensor:
         D,
         s0,
         M,
+        tile,
+        chunk,
         y.data_ptr(),
         dev,
         stream,

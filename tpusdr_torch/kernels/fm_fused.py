@@ -5,6 +5,8 @@ Replaces ``fused_fm_demod_pallas`` (tpusdr/kernels/fm_pallas.py), with the
 same contract: ext of length (T-1) + (M+1)*D gives M float32 outputs.  A
 CUDA tensor launches the kernel; a CPU tensor takes the plain version, the
 torch mix -> ``fir_extended`` -> ``quad_fm_demod_ext`` pipeline.
+``fm_fused_plan`` picks the kernel's tile and tap chunk so that one block
+fits an H100's shared memory.
 """
 
 from __future__ import annotations
@@ -13,6 +15,25 @@ import numpy as np
 import torch
 
 from tpusdr_torch.kernels.dispatch import check_launch, launch_target, on_cuda
+from tpusdr_torch.kernels.fir_banded import SMEM_LIMIT, TILES, tap_chunk
+
+
+def fm_fused_smem(D: int, nv: int, chunk: int) -> int:
+    """Shared memory of one FM-fused block: the mixed window of ``nv``
+    filtered samples over ``chunk`` taps, the nv samples, the chunk's taps
+    (csrc/fm_fused.cu smem_bytes)."""
+    return ((nv - 1) * D + chunk + nv) * 8 + chunk * 4
+
+
+def fm_fused_plan(T: int, D: int) -> tuple[int, int]:
+    """(nv, chunk) of an FM-fused launch: nv filtered samples (nv-1 outputs)
+    per block, the largest of 64, 32, 16, 8 that fits ``SMEM_LIMIT`` with
+    all T taps, else 8 with taps taken in chunks."""
+    for nv in TILES:
+        if fm_fused_smem(D, nv, T) <= SMEM_LIMIT:
+            return nv, T
+    nv = TILES[-1]
+    return nv, tap_chunk(T, ((nv - 1) * D + nv) * 8, 12)
 
 
 def fused_fm_demod_plain(x_ext, taps, D: int, inc_u32: int, phase0_u32: int, gain: float, M: int):
@@ -34,7 +55,8 @@ def _launch(x_ext, taps, D, inc_u32, phase0_u32, gain, M):
         raise ValueError("fm_fused: ext must be a 1-D complex64 tensor")
     if taps.dtype != torch.float32 or taps.dim() != 1:
         raise ValueError("fm_fused: taps must be 1-D float32")
-    dev, stream = launch_target(x_ext, lib.tpusdr_fm_fused_smem(T, D), f"fm_fused (T={T}, D={D})")
+    nv, chunk = fm_fused_plan(T, D)
+    dev, stream = launch_target(x_ext, lib.tpusdr_fm_fused_smem(D, nv, chunk), f"fm_fused (T={T}, D={D})")
     x_ext = x_ext.contiguous()
     taps = taps.contiguous()
     out = torch.empty(M, dtype=torch.float32, device=x_ext.device)
@@ -48,6 +70,8 @@ def _launch(x_ext, taps, D, inc_u32, phase0_u32, gain, M):
         int(phase0_u32) & 0xFFFFFFFF,
         float(np.float32(gain)),
         M,
+        nv,
+        chunk,
         out.data_ptr(),
         dev,
         stream,

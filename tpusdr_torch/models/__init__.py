@@ -1,3 +1,11 @@
 """tpusdr_torch.models — complete receiver pipelines."""
 
-from tpusdr_torch.models.receiver import NBFM, WBFM, ReceiverSpec, fm_receiver  # noqa: F401
+from tpusdr_torch.models.receiver import (  # noqa: F401
+    AM,
+    NBFM,
+    WBFM,
+    ReceiverSpec,
+    am_receiver,
+    fm_receiver,
+    rf_to_pcm,
+)

@@ -1,8 +1,9 @@
-"""Single-channel RF -> PCM FM receiver builder (port of
-tpusdr/models/receiver.py:43-244).
+"""Single-channel RF -> PCM receivers (port of
+tpusdr/models/receiver.py:43-315, 421-441).
 
-    freq shift -> RF lowpass FIR (decimate) -> FM discriminator ->
-    de-emphasis -> rational audio resampler -> PCM
+    [iq convert] -> freq shift -> RF lowpass FIR (decimate) ->
+    FM discriminator | AM envelope -> de-emphasis | DC block ->
+    [audio band-pass] -> rational audio resampler -> PCM
 
 The resolution rules are the JAX package's: ``use_fused="auto"`` resolves
 to the unfused chain and ``multistage=True`` designs the RF decimation
@@ -17,11 +18,14 @@ from dataclasses import dataclass
 from fractions import Fraction
 
 from tpusdr_torch.graph.blocks import (
+    DcBlock,
     Deemphasis,
     Fir,
     FreqShift,
     FreqShiftFir,
     FusedFmDemod,
+    IqToComplex,
+    QuadAmDemod,
     QuadFmDemod,
     Resampler,
 )
@@ -41,6 +45,7 @@ AM_BANDWIDTH = 10e3
 
 NBFM = "nbfm"
 WBFM = "wbfm"
+AM = "am"
 
 
 @dataclass(frozen=True)
@@ -111,12 +116,7 @@ def fm_receiver(
 
     ``freq_offset`` is the channel centre relative to the capture centre.
     ``use_fused=True`` replaces shift -> FIR -> demod with ``FusedFmDemod``.
-    Only complex64 ('cf32') input is ported so far."""
-    if input_format != "cf32":
-        raise NotImplementedError(
-            f"input_format {input_format!r} needs IqToComplex, not ported to "
-            "tpusdr_torch yet (ROADMAP.md: modules to port)"
-        )
+    ``input_format`` other than 'cf32' puts ``IqToComplex`` first."""
     if channel_width is None:
         channel_width = WBFM_CHANNEL_WIDTH if variant == WBFM else NBFM_CHANNEL_WIDTH
     if deviation is None:
@@ -138,6 +138,8 @@ def fm_receiver(
     actual_audio = quad_rate * up / down
 
     blocks = []
+    if input_format != "cf32":
+        blocks.append(("iq", IqToComplex(input_format)))
     if use_fused:
         blocks.append(("frontend", FusedFmDemod(rf_sample_rate, -freq_offset, rf_taps, d1, gain)))
     else:
@@ -165,3 +167,84 @@ def fm_receiver(
         variant, rf_sample_rate, spec.rf_stages, quad_rate, up, down, actual_audio,
     )
     return chain, spec
+
+
+def am_receiver(
+    rf_sample_rate: float,
+    freq_offset: float = 0.0,
+    audio_rate: float = 48000.0,
+    bandwidth: float = AM_BANDWIDTH,
+    input_format: str = "cf32",
+    db_attenuation: float = -60.0,
+    fir_mode: str = "auto",
+    audio_band: tuple[float, float] | None = None,
+    multistage: bool = True,
+    fold_shift: bool = True,
+) -> tuple[Chain, ReceiverSpec]:
+    """AM envelope receiver (the am_test.cpp chain): shift -> lowpass
+    decimation -> QuadAmDemod -> DC block (the carrier-bias removal) ->
+    [audio band-pass] -> resampler.  ``fir_mode='pallas'`` needs
+    ``fold_shift=False`` (FreqShiftFir has no K4 form)."""
+    d1 = _rf_decimation(rf_sample_rate, bandwidth, min_oversample=4.0)
+    quad_rate = rf_sample_rate / d1
+    if multistage:
+        rf_stages = design.decimation_stages(
+            rf_sample_rate, bandwidth / 2.0, bandwidth / 2.0, db_attenuation, d1
+        )
+    else:
+        rf_stages = [
+            (design.lowpass_taps(rf_sample_rate, bandwidth / 2.0, bandwidth / 2.0, db_attenuation), d1)
+        ]
+    up, down = _rational(quad_rate, audio_rate)
+
+    blocks = []
+    if input_format != "cf32":
+        blocks.append(("iq", IqToComplex(input_format)))
+    blocks.extend(_shift_and_fir_stages(rf_sample_rate, freq_offset, rf_stages, fir_mode, fold_shift))
+    blocks.append(("demod", QuadAmDemod()))
+    blocks.append(("dc", DcBlock()))
+    if audio_band is not None:
+        lo, hi = audio_band
+        bp = design.bandpass_taps(quad_rate, lo, hi, transition_width=lo, db_attenuation=db_attenuation)
+        blocks.append(("audio_bp", Fir(bp, 1, "Float", fir_mode)))
+    if (up, down) != (1, 1):
+        blocks.append(("audio", Resampler(up, down, db_attenuation=db_attenuation)))
+
+    chain = Chain(blocks)
+    spec = ReceiverSpec(
+        rf_sample_rate=rf_sample_rate,
+        channel_width=bandwidth,
+        rf_decimation=d1,
+        quad_rate=quad_rate,
+        audio_rate=quad_rate * up / down,
+        rf_taps=sum(len(t) for t, _ in rf_stages),
+        resampler=(up, down),
+        quad_gain=1.0,
+        rf_stages=tuple((len(t), d) for t, d in rf_stages),
+    )
+    log.info(
+        "am receiver: fs=%.3g, RF stages %s -> quad %.3g, audio %d/%d -> %.5g Hz",
+        rf_sample_rate, spec.rf_stages, quad_rate, up, down, spec.audio_rate,
+    )
+    return chain, spec
+
+
+def rf_to_pcm(
+    modulation: str,
+    rf_sample_rate: float,
+    tuned_frequency: float,
+    channel_frequency: float,
+    audio_rate: float = 48000.0,
+    **kw,
+) -> tuple[Chain, ReceiverSpec]:
+    """IRfToPcmAudioFactory::createRfToPcm parity (FilterFactories.h:159-175):
+    modulation plus tuned and channel frequencies."""
+    offset = channel_frequency - tuned_frequency
+    m = modulation.lower()
+    if m in ("fm", "wbfm"):
+        return fm_receiver(rf_sample_rate, offset, WBFM, audio_rate, **kw)
+    if m == "nbfm":
+        return fm_receiver(rf_sample_rate, offset, NBFM, audio_rate, deemphasis_tau=None, **kw)
+    if m == "am":
+        return am_receiver(rf_sample_rate, offset, audio_rate, **kw)
+    raise ValueError(f"unknown modulation {modulation!r}")

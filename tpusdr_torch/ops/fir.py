@@ -1,6 +1,6 @@
 """Decimating FIR filtering with Fir.cpp streaming semantics.
 
-Port of tpusdr/ops/fir.py:77-177, 297-340, 429-483.
+Port of tpusdr/ops/fir.py:77-483.
 
   * with A available input samples, T taps and decimation D, the number
     of outputs is (A - (T-1)) // D;
@@ -22,7 +22,14 @@ Modes:
     the banded tap matrix W[i, j] = h_rev[i - j*D] as a sum over row-chunk
     views, A @ W = sum_j A_j @ W_j (no window copy).
   * 'conv' — ``F.conv1d`` with stride D, with cuDNN's TF32 turned off.
-  * 'poly', 'fft' — not ported yet (ROADMAP.md, modules to port, item 1).
+  * 'poly' — polyphase frames: y[m] = sum_p frames[m+p] . H[p], one
+    accumulated pass over P shifted (frame, D) views; the plain version
+    of kernel K4 (``kernels.fir_poly``).
+  * 'fft'  — segmented overlap-save on ``torch.fft`` with the JAX
+    package's segment plan (hop a multiple of D).
+
+The JAX package's mode 'pallas' belongs to the ``Fir`` block, which sends
+eligible streams to kernel K4 and the rest to 'poly'.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from tpusdr_torch.utils.numerics import cdiv, round_up
+from tpusdr_torch.utils.numerics import cdiv, next_pow2, round_up
 
 FirMode = Literal["auto", "banded", "mxu", "conv", "poly", "fft"]
 
@@ -51,13 +58,6 @@ def history_len(num_taps: int) -> int:
     return num_taps - 1
 
 
-def _not_ported(mode: str):
-    return NotImplementedError(
-        f"FIR mode {mode!r} is not ported to tpusdr_torch yet "
-        "(ROADMAP.md: modules to port, item 1)"
-    )
-
-
 def fir_extended(x_ext: torch.Tensor, taps: torch.Tensor, decimation: int = 1, mode: FirMode = "auto"):
     """Valid-mode convolution of ``x_ext`` (..., L) with ``taps``, decimated
     by D: L = (T-1) + M*D gives (..., M); an unusable tail is ignored."""
@@ -65,9 +65,7 @@ def fir_extended(x_ext: torch.Tensor, taps: torch.Tensor, decimation: int = 1, m
     D = int(decimation)
     M = num_outputs(x_ext.shape[-1], T, D)
     out_complex = x_ext.is_complex() or taps.is_complex()
-    if mode in ("poly", "fft", "pallas"):
-        raise _not_ported(mode)
-    if mode not in ("auto", "banded", "mxu", "conv"):
+    if mode not in ("auto", "banded", "mxu", "conv", "poly", "fft"):
         raise ValueError(f"unknown FIR mode {mode!r}")
     if M <= 0:
         dt = torch.complex64 if out_complex else torch.float32
@@ -80,7 +78,9 @@ def fir_extended(x_ext: torch.Tensor, taps: torch.Tensor, decimation: int = 1, m
 
             return banded_fir(x_ext, taps, D)
         mode = "mxu"
-    impl = _fir_mxu if mode == "mxu" else _fir_conv
+    if mode == "fft":
+        return _fir_fft(x_ext, taps, D, M)
+    impl = {"mxu": _fir_mxu, "conv": _fir_conv, "poly": _fir_poly}[mode]
 
     cx, ch = x_ext.is_complex(), taps.is_complex()
     if not cx and not ch:  # FF
@@ -114,6 +114,59 @@ def _fir_conv(x: torch.Tensor, taps: torch.Tensor, D: int, M: int) -> torch.Tens
     ):
         out = F.conv1d(lhs, rhs, stride=D)
     return out.reshape(batch + (M,))
+
+
+def _fir_poly(x: torch.Tensor, taps: torch.Tensor, D: int, M: int) -> torch.Tensor:
+    """Polyphase-frame path (real only; the caller splits complex),
+    fir.py:196-226.  Reversed taps zero-padded to P*D as H (P, D); x
+    zero-padded to (M+P-1)*D as frames (M+P-1, D); then
+    y[m] = sum_p frames[m+p] . H[p], accumulated over P shifted views of
+    the frames (no P-fold stacked copy)."""
+    T = taps.shape[-1]
+    P = cdiv(T, D)
+    h_poly = F.pad(torch.flip(taps, [-1]).to(torch.float32), (0, P * D - T)).reshape(P, D)
+    need = (M + P - 1) * D
+    x = x.to(torch.float32)
+    x = F.pad(x, (0, need - x.shape[-1])) if need > x.shape[-1] else x[..., :need]
+    frames = x.reshape(x.shape[:-1] + (M + P - 1, D))
+    acc = torch.matmul(frames[..., 0:M, :], h_poly[0])
+    for p in range(1, P):
+        acc = acc + torch.matmul(frames[..., p : p + M, :], h_poly[p])
+    return acc
+
+
+def _fft_segment_plan(T: int, D: int, M: int) -> tuple[int, int, int]:
+    """(n_fft, hop, n_segments) for overlap-save (fir.py:343-357): segments
+    of ~8x the taps, clamped to [1024, 32768], hop a multiple of D."""
+    n_fft = min(max(next_pow2(8 * T), 1024), 1 << 15)
+    while n_fft - T + 1 < D:
+        n_fft *= 2
+    hop = ((n_fft - T + 1) // D) * D
+    return n_fft, hop, cdiv(M * D, hop)
+
+
+def _fir_fft(x: torch.Tensor, taps: torch.Tensor, D: int, M: int) -> torch.Tensor:
+    """Segmented overlap-save, then decimation (fir.py:371-421, its native
+    complex path).  Segment s is x[s*hop : s*hop + n_fft]; its circular
+    outputs [T-1, T-1+hop) are linear, so the segments together give the
+    valid convolution, and every D-th of them the decimated output."""
+    T = taps.shape[-1]
+    n_fft, hop, n_seg = _fft_segment_plan(T, D, M)
+    complex_io = x.is_complex() or taps.is_complex()
+    x = x.to(torch.complex64 if complex_io else torch.float32)
+    need = (n_seg - 1) * hop + n_fft
+    x = F.pad(x, (0, need - x.shape[-1])) if need > x.shape[-1] else x[..., :need]
+    A = x.unfold(-1, n_fft, hop)  # (..., n_seg, n_fft) views
+    if complex_io:
+        H = torch.fft.fft(taps.to(torch.complex64), n=n_fft)
+        y = torch.fft.ifft(torch.fft.fft(A, dim=-1) * H, dim=-1)
+    else:
+        H = torch.fft.rfft(taps.to(torch.float32), n=n_fft)
+        y = torch.fft.irfft(torch.fft.rfft(A, dim=-1) * H, n=n_fft, dim=-1)
+    valid = y[..., T - 1 : T - 1 + hop]
+    if D > 1:
+        valid = valid.reshape(valid.shape[:-1] + (hop // D, D))[..., 0]
+    return valid.reshape(valid.shape[:-2] + (-1,))[..., :M]
 
 
 def _mxu_tile_width(T: int, D: int, M: int) -> int:

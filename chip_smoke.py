@@ -7,8 +7,9 @@ Phases (each prints lines; any failure exits non-zero):
   1. the card (nvidia-smi name and power limit) and the kernel build time;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      main paths' shapes, with its time and the plain version's: D-FIR at
-     the WBFM shape (history and prelude forms) and at the single-stage AM
-     shape (6665, /500); FM-fused at NBFM 2 Msps and at the single-stage
+     the WBFM shape (history and prelude forms), at the single-stage AM
+     shape (6665, /500), at the AM CLI's two stages (868, /250) and (46, /2)
+     and at the digital app's (728, /12); FM-fused at NBFM 2 Msps and at the single-stage
      NBFM 20 Msps shape (9660, /666); K4 at the AM shapes (868, /250) on a
      20 Msps tick, (46, /2) and (6665, /500) and at the JSON graph's
      (546, /50); the copy floor K5 at ticks of 1,280,000 and 2,048,000
@@ -258,7 +259,11 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
     shiftfir = wb_chain.get_block("shiftfir").to(dev)
     T, D = shiftfir.taps.shape[-1], shiftfir.decimation
     check((T, D) == (546, 50), f"WBFM 20 Msps stage is ({T}, {D}), expected (546, 50)")
-    check(fir_banded.decim_fir_plan(T, D, True) == (64, T), "the WBFM shape must keep its 64-output tile")
+    wb_plan = fir_banded.decim_fir_plan(T, D, True, TICK // D)
+    print(f"phase 2 D-FIR plan at (546, /50), M={TICK // D}: {wb_plan}", flush=True)
+    check(wb_plan == fir_banded.DecimFirPlan("phase", fir_banded.PHASE_TILE, T)
+          and -(-TICK // D // wb_plan.tile) >= fir_banded.PHASE_MIN_BLOCKS,
+          f"the WBFM shape takes the phase-major form, 224 outputs a block, all taps in one pass, 115 blocks: {wb_plan}")
     ctaps = shiftfir.mod_taps
     x = crandn(TICK)
     hist = crandn(T - 1)
@@ -299,12 +304,39 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
     ta = torch.from_numpy((lowpass(Ta, 0.0005) * np.exp(-2j * np.pi * 0.06 * np.arange(Ta))).astype(np.complex64)).to(dev)
     hist_a = crandn(Ta - 1)
     cmp["hist_f1"] = compare(
-        torch, card, f"D-FIR history form T=6665 D=500 N=1280000 tile={fir_banded.decim_fir_plan(Ta, Da, True)}",
+        torch, card, f"D-FIR history form T=6665 D=500 N=1280000 {fir_banded.decim_fir_plan(Ta, Da, True, TICK // Da)}",
         lambda: fir_banded.banded_fir(x, ta, Da, history=hist_a),
         lambda: fir_banded.decim_fir_plain(hist_a, x, ta, Da, 0, TICK // Da),
         fir_banded.banded_fir,
         *fir_cost(TICK + Ta - 1, Ta, TICK // Da, True),
     )
+    # the other D-FIR launches of the receiver paths, with the paths' own taps:
+    # the AM CLI's two stages (beside K4's rows at the same shapes) and the
+    # digital app's stage
+    am_default, _ = receiver.am_receiver(20e6, 1.2e6, input_format="int8")
+    dg_chain, _ = receiver.digital_receiver()
+    dg_tick = (1 << 20) // dg_chain.granule * dg_chain.granule
+    for key, blk, L in (("am1", am_default.get_block("shiftfir1"), TICK),
+                        ("am2", am_default.get_block("rf_fir2"), TICK // 250),
+                        ("digital", dg_chain.get_block("shiftfir"), dg_tick)):
+        cplx = hasattr(blk, "mod_taps")
+        tb = (blk.mod_taps if cplx else blk.taps).to(dev)
+        Tb, Db = tb.shape[-1], blk.decimation
+        hb, xb = crandn(Tb - 1), crandn(L)
+        plan_b = fir_banded.decim_fir_plan(Tb, Db, cplx, L // Db)
+        if key == "am1":
+            check((Tb, Db) == (868, 250) and plan_b.form == "taps" and L // Db // plan_b.tile >= fir_banded.MIN_BLOCKS,
+                  f"AM stage 1 is ({Tb}, {Db}) with plan {plan_b}: fewer than {fir_banded.MIN_BLOCKS} blocks")
+        if key == "digital":
+            check((Tb, Db) == (728, 12) and plan_b.form == "phase", f"the digital stage is ({Tb}, {Db}) with plan {plan_b}")
+        cmp[f"hist_{key}"] = compare(
+            torch, card, f"D-FIR history form T={Tb} D={Db} N={L} {'complex' if cplx else 'real'} taps {plan_b}",
+            lambda xb=xb, tb=tb, Db=Db, hb=hb: fir_banded.banded_fir(xb, tb, Db, history=hb),
+            lambda xb=xb, tb=tb, Db=Db, hb=hb, Mb=L // Db: fir_banded.decim_fir_plain(hb, xb, tb, Db, 0, Mb),
+            fir_banded.banded_fir,
+            *fir_cost(L + Tb - 1, Tb, L // Db, cplx),
+            **conv1d_fir(torch, torch.cat([hb, xb]), tb, Db, L // Db),
+        )
 
     nb_chain, _ = receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)
     front = nb_chain.get_block("frontend")
@@ -534,6 +566,7 @@ def am_phase(torch, card, dev, pallas_chain, kernels_used: dict) -> dict:
     counts = path_counts(torch)
     check(rc == 0, f"receive CLI exited {rc}")
     check_path(counts, "AM CLI", {"banded_fir": 2 * N_TICKS})
+    kernels_used["am:banded_fir"] = counts["banded_fir"] // 2  # a stage
     audio_cli, wav_fs = read_wav(wav)
     cpu_default, _ = receiver.am_receiver(fs, offset, input_format="int8")
     ref = run_chain(torch, cpu_default, head, "cpu")
@@ -831,8 +864,8 @@ def main() -> int:
 
     # -- phase 9: report --------------------------------------------------------
     # launches: the count of the main path that runs the kernel at the row's
-    # shape (K1 WBFM default, K2 WBFM fused, K3 NBFM, K4 the JSON graph,
-    # K5-K8 this slice's probe entry points)
+    # shape (K1 WBFM default, the AM CLI and the digital app; K2 WBFM fused,
+    # K3 NBFM, K4 the JSON graph, K5-K8 the probes' entry points)
     src = "tpusdr_torch/kernels/csrc/"
     kern = [
         {"name": "decim_fir (history form)", "route": "cuda", "source": src + "decim_fir.cu",
@@ -841,6 +874,15 @@ def main() -> int:
         {"name": "decim_fir (prelude form)", "route": "cuda", "source": src + "decim_fir.cu",
          "replaces": "tpusdr/kernels/fir_banded_pallas.py:604",
          "launches": used["banded_fir_prelude"], **_nums(cmp["prelude"])},
+        {"name": "decim_fir (history form, AM stage 1 (868, /250))", "route": "cuda", "source": src + "decim_fir.cu",
+         "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["am:banded_fir"], **_nums(cmp["hist_am1"])},
+        {"name": "decim_fir (history form, AM stage 2 (46, /2))", "route": "cuda", "source": src + "decim_fir.cu",
+         "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["am:banded_fir"], **_nums(cmp["hist_am2"])},
+        {"name": "decim_fir (history form, digital stage (728, /12))", "route": "cuda", "source": src + "decim_fir.cu",
+         "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["digital:banded_fir"], **_nums(cmp["hist_digital"])},
         {"name": "fm_fused", "route": "cuda", "source": src + "fm_fused.cu",
          "replaces": "tpusdr/kernels/fm_pallas.py:205",
          "launches": used["fused_fm_demod"], **_nums(cmp["fm"])},

@@ -84,31 +84,58 @@ def err_db(ref, got):
 
 
 @pytest.mark.parametrize(
-    "T,D,complex_taps,tile",
+    "T,D,complex_taps,M,form,tile",
     [
-        (546, 50, True, 64),
-        (33, 4, False, 64),
-        (46, 2, True, 64),
-        (6665, 500, True, 32),  # F1: single-stage AM at 20 Msps
-        (9660, 666, False, 16),  # F1: single-stage NBFM at 20 Msps
-        (9660, 666, True, 8),
+        (546, 50, True, 25_637, "phase", 224),  # WBFM 20 Msps tick, ragged last tile
+        (546, 50, False, 20_011, "phase", 224),
+        (546, 50, True, 2_560, "taps", 8),
+        (728, 12, True, 87_380, "phase", 224),  # the digital app's stage
+        (728, 12, False, 21_841, "phase", 224),
+        (2500, 8, True, 20_000, "phase", 224),  # Q = 313: 44 whole groups and 5 taps
+        (2500, 8, True, 6_144, "taps", 16),
+        (101, 9, True, 30_001, "phase", 224),  # odd D: the pitch is D itself
+        (101, 7, True, 30_001, "taps", 64),  # D < 8 stays lanes-across-taps
+        (868, 250, True, 5_120, "taps", 16),  # AM stage 1
+        (868, 250, True, 30_000, "taps", 32),
+        (46, 2, True, 2_560, "taps", 8),  # AM stage 2
+        (46, 2, False, 50_001, "taps", 64),
+        (33, 4, False, 2_560, "taps", 8),
+        (6665, 500, True, 2_560, "taps", 32),  # F1: single-stage AM at 20 Msps
+        (9660, 666, False, 2_560, "taps", 16),  # F1: single-stage NBFM at 20 Msps
+        (9660, 666, True, 2_560, "taps", 8),
     ],
 )
-def test_decim_fir_history_form(cuda, rng, T, D, complex_taps, tile):
-    assert tfb.decim_fir_plan(T, D, complex_taps) == (tile, T)
+def test_decim_fir_history_form(cuda, rng, T, D, complex_taps, M, form, tile):
+    """Both inner loops of the kernel at the shapes the rule gives them,
+    ragged M included.  x ends in D // 2 samples past the last one a tap
+    reads, all NaN: they must not reach an output."""
+    assert tfb.decim_fir_plan(T, D, complex_taps, M) == (form, tile, T)
     h = taps(T, complex_taps, cuda)
-    M = 2560
-    hist, x = crandn(rng, cuda, T - 1), crandn(rng, cuda, M * D)
+    hist, x = crandn(rng, cuda, T - 1), crandn(rng, cuda, M * D + D // 2)
+    x[M * D :] = float("nan")
     before = tfb.banded_fir.launches
     got = tfb.banded_fir(x, h, D, history=hist)
     assert tfb.banded_fir.launches == before + 1
+    assert got.shape == (M,) and bool(torch.isfinite(torch.view_as_real(got)).all())
     close_to_peak(got, tfb.decim_fir_plain(hist, x, h, D, 0, M))
 
 
-@pytest.mark.parametrize("T,D,rows", [(546, 50, 200), (89, 8, 48), (2500, 8, 48)])
-def test_decim_fir_prelude_form_streaming(cuda, rng, T, D, rows):
+@pytest.mark.parametrize(
+    "T,D,rows,complex_taps",
+    [
+        (546, 50, 200, True),  # phase-major, s0 = 8G - 545
+        (546, 50, 200, False),
+        (546, 50, 48, True),  # lanes across taps
+        (89, 8, 48, True),
+        (2500, 8, 48, True),
+        (2500, 8, 160, True),  # phase-major with history three rows deep
+        (728, 12, 688, True),
+        (46, 2, 64, False),
+    ],
+)
+def test_decim_fir_prelude_form_streaming(cuda, rng, T, D, rows, complex_taps):
     G, _ = tfb.prelude_plan(T, D)
-    h = taps(T, True, cuda)
+    h = taps(T, complex_taps, cuda)
     pre = torch.zeros(8, G, dtype=torch.complex64, device=cuda)
     for _ in range(2):
         x = crandn(rng, cuda, rows * G)
@@ -160,22 +187,27 @@ def test_shared_memory_rules_match_the_kernels(cuda):
     from tpusdr_torch.kernels.build import library
 
     lib = library()
-    for D in (2, 50, 250, 500, 666):
-        for tile in tfb.TILES:
-            for chunk in (46, 868, 6665):
-                for c in (0, 1):
-                    assert lib.tpusdr_decim_fir_smem(D, c, tile, chunk) == tfb.decim_fir_smem(D, bool(c), tile, chunk)
-                assert lib.tpusdr_fm_fused_smem(D, tile, chunk) == tfm.fm_fused_smem(D, tile, chunk)
+    for D in (2, 7, 12, 50, 250, 500, 666):
+        for T in (46, 546, 868, 6665):
+            for c in (0, 1):
+                phase = tfb.DecimFirPlan("phase", tfb.PHASE_TILE, T)
+                assert lib.tpusdr_decim_fir_smem(T, D, c, 1, phase.tile, T) == tfb.decim_fir_smem(T, D, bool(c), phase)
+            for tile in tfb.TILES:
+                for chunk in {46, T}:
+                    for c in (0, 1):
+                        plan = tfb.DecimFirPlan("taps", tile, chunk)
+                        assert lib.tpusdr_decim_fir_smem(T, D, c, 0, tile, chunk) == tfb.decim_fir_smem(T, D, bool(c), plan)
+                assert lib.tpusdr_fm_fused_smem(D, tile, T) == tfm.fm_fused_smem(D, tile, T)
     assert lib.tpusdr_fir_poly_smem(6665) == 6665 * 4
 
 
 def test_long_taps_run_in_chunks(cuda, rng):
     """F1: taps too long for even an 8-output window run in chunks."""
     T, D = 30000, 2
-    tile, chunk = tfb.decim_fir_plan(T, D, True)
-    assert tile == 8 and chunk < T
-    h = taps(T, True, cuda)
     x = crandn(rng, cuda, 1 << 16)
+    plan = tfb.decim_fir_plan(T, D, True, ((1 << 16) - (T - 1)) // D)
+    assert plan.form == "taps" and plan.tile == 8 and plan.chunk < T
+    h = taps(T, True, cuda)
     close_to_peak(tfb.banded_fir(x, h, D), tfb.decim_fir_plain(None, x, h, D, 0, ((1 << 16) - (T - 1)) // D))
     nv, chunk = tfm.fm_fused_plan(60000, 666)
     assert nv == 8 and chunk < 60000

@@ -209,19 +209,27 @@ def _longest_candidate_taps(sample_rate, cutoff, transition_width, db_attenuatio
     return np.zeros(n, dtype)
 
 
-def _rf_stage_launches(chain):
-    """(kernel, shared memory bytes, plan) of each RF stage's launch."""
+RULE_TICK = 1_280_000  # RF samples a tick for the rules that count blocks
+
+
+def _rf_stage_launches(chain, tick=RULE_TICK):
+    """(kernel, (T, D), shared memory bytes, plan) of each RF stage's launch
+    on a tick of ``tick`` RF samples; a D-FIR entry's shape is (T, D,
+    complex taps, M)."""
     out = []
+    n = tick
     for name, b in chain.blocks:
         if isinstance(b, TB.FusedFmDemod) and not b._rows_capable:
             T, D = b.taps.shape[-1], b.decimation
             nv, chunk = tfm.fm_fused_plan(T, D)
+            n //= D
             out.append(("fm_fused", (T, D), tfm.fm_fused_smem(D, nv, chunk), (nv, chunk)))
         elif isinstance(b, (TB.FusedFmDemod, TB.FreqShiftFir)) or (isinstance(b, TB.Fir) and name.startswith("rf_fir")):
             T, D = b.taps.shape[-1], b.decimation
             cplx_taps = isinstance(b, (TB.FusedFmDemod, TB.FreqShiftFir))
-            tile, chunk = tfb.decim_fir_plan(T, D, cplx_taps)
-            out.append(("decim_fir", (T, D), tfb.decim_fir_smem(D, cplx_taps, tile, chunk), (tile, chunk)))
+            n //= D
+            plan = tfb.decim_fir_plan(T, D, cplx_taps, n)
+            out.append(("decim_fir", (T, D, cplx_taps, n), tfb.decim_fir_smem(T, D, cplx_taps, plan), plan))
     return out
 
 
@@ -251,14 +259,162 @@ def test_tile_rules_fit_every_receiver_stage(monkeypatch):
 def test_tile_rules_chunk_long_taps():
     """Where even 8 outputs do not fit with all the taps, the taps go in
     chunks of a multiple of 32 that fit."""
-    assert tfb.decim_fir_plan(546, 50, True) == (64, 546)
     assert tfm.fm_fused_plan(728, 66) == (64, 728)  # NBFM 2 Msps keeps its tile
-    tile, chunk = tfb.decim_fir_plan(30000, 2, True)
-    assert tile == 8 and chunk < 30000 and chunk % 32 == 0
-    assert tfb.decim_fir_smem(2, True, tile, chunk) <= tfb.SMEM_LIMIT
-    assert tfb.decim_fir_smem(2, True, tile, chunk + 32) > tfb.SMEM_LIMIT
+    plan = tfb.decim_fir_plan(30000, 2, True, 17_000)
+    assert plan.form == "taps" and plan.tile == 8 and plan.chunk < 30000 and plan.chunk % 32 == 0
+    assert tfb.decim_fir_smem(30000, 2, True, plan) <= tfb.SMEM_LIMIT
+    assert tfb.decim_fir_smem(30000, 2, True, plan._replace(chunk=plan.chunk + 32)) > tfb.SMEM_LIMIT
     nv, chunk = tfm.fm_fused_plan(60000, 666)
     assert nv == 8 and chunk < 60000 and tfm.fm_fused_smem(666, nv, chunk) <= tfb.SMEM_LIMIT
+
+
+# -- the card's D-FIR rule and the phase-major form -----------------------------------
+
+
+def test_decim_fir_plan_over_every_receiver_stage(monkeypatch):
+    """The rule over every RF stage the receivers build at 1-20 Msps on a
+    tick of 1,280,000 RF samples.  Every plan fits one block's shared
+    memory.  Phase-major plans: 224 outputs a block, R and the pitch odd so
+    that the half-warps' 64-bit loads are conflict-free (checked bank by
+    bank), every warp has a phase, the grid covers two thirds of the SMs.
+    Lanes-across-taps plans: where two blocks can share an SM, at least 264
+    blocks wherever M >= 264 x the smallest tile; where none can, the
+    largest tile that fits.  The plan is a function of (T, D, taps, M)
+    alone, so the history and prelude forms of one stage get the same."""
+    monkeypatch.setattr(tdesign, "lowpass_taps", _longest_candidate_taps)
+    forms = set()
+    for fs in (1e6, 2e6, 2.4e6, 5e6, 8e6, 10e6, 16e6, 20e6):
+        for multistage in (True, False):
+            builds = [TR.am_receiver(fs, 0.2 * fs, multistage=multistage)]
+            for variant in (TR.WBFM, TR.NBFM):
+                for fused in (False, True):
+                    builds.append(TR.fm_receiver(fs, 0.2 * fs, variant, use_fused=fused, multistage=multistage))
+            for chain, _ in builds:
+                for kernel, shape, smem, plan in _rf_stage_launches(chain):
+                    if kernel != "decim_fir":
+                        continue
+                    T, D, cplx, M = shape
+                    assert smem <= tfb.SMEM_LIMIT, (fs, shape, plan, smem)
+                    assert plan.chunk == T or (plan.form, plan.tile) == ("taps", tfb.TILES[-1])
+                    blocks = -(-M // plan.tile)
+                    forms.add(plan.form)
+                    if plan.form == "phase":
+                        R, pitch = plan.tile // 32, tfb.phase_pitch(D)
+                        assert plan.tile == tfb.PHASE_TILE and R % 2 == 1 and pitch % 2 == 1 and pitch >= D
+                        banks = {(lane * R * pitch) % 16 for lane in range(16)}  # 8-byte banks of a half-warp
+                        assert len(banks) == 16, (shape, plan)
+                        assert D >= tfb.KERNEL_WARPS and blocks >= tfb.PHASE_MIN_BLOCKS, (shape, plan)
+                    else:
+                        assert plan.tile in tfb.TILES
+                        if tfb.blocks_per_sm(smem) >= 2:
+                            if M >= tfb.MIN_BLOCKS * tfb.TILES[-1]:
+                                assert blocks >= tfb.MIN_BLOCKS, (shape, plan)
+                        else:
+                            bigger = [t for t in tfb.TILES if t > plan.tile]
+                            assert all(tfb.decim_fir_smem(T, D, cplx, plan._replace(tile=t, chunk=T)) > tfb.SMEM_LIMIT
+                                       for t in bigger), (shape, plan)
+                    # history form: M = (H + N - (T-1)) // D with H = T-1; prelude form: M = N // D
+                    n = M * D
+                    assert tfb.decim_fir_plan(T, D, cplx, ((T - 1) + n - (T - 1)) // D) == plan
+                    assert tfb.decim_fir_plan(T, D, cplx, n // D) == plan
+    assert forms == {"phase", "taps"}
+
+
+@pytest.mark.parametrize(
+    "T,D,complex_taps,M,want",
+    [
+        (546, 50, True, 25_600, ("phase", 224)),  # WBFM 20 Msps, a 1,280,000-sample tick: 115 blocks
+        (546, 50, True, 51_200, ("phase", 224)),
+        (546, 50, True, 19_200, ("taps", 64)),  # 86 blocks of 224 would leave a third of the SMs idle
+        (546, 50, True, 6_400, ("taps", 16)),
+        (546, 50, False, 25_600, ("phase", 224)),
+        (728, 12, True, 87_380, ("phase", 224)),  # the digital app
+        (728, 66, True, 20_000, ("phase", 224)),
+        (868, 250, True, 5_120, ("taps", 16)),  # AM stage 1: 320 blocks where the 64-output tile gave 80
+        (46, 2, False, 2_560, ("taps", 8)),  # AM stage 2
+        (46, 2, True, 640_000, ("taps", 64)),  # D < 8: six of eight warps would have no phase
+        (2500, 8, True, 6_144, ("taps", 16)),
+        (6665, 500, True, 2_560, ("taps", 32)),  # one block an SM whatever the tile: the largest
+        (9660, 666, False, 2_560, ("taps", 16)),
+        (9660, 666, True, 2_560, ("taps", 8)),
+        (33, 4, False, 100, ("taps", 8)),
+    ],
+)
+def test_decim_fir_plan_choices(T, D, complex_taps, M, want):
+    plan = tfb.decim_fir_plan(T, D, complex_taps, M)
+    assert (plan.form, plan.tile) == want and plan.chunk == T
+    assert tfb.decim_fir_smem(T, D, complex_taps, plan) <= tfb.SMEM_LIMIT
+
+
+def phase_major_form(hist, x, taps, D, s0, M, R=tfb.PHASE_R, warps=tfb.KERNEL_WARPS):
+    """The phase-major form of the D-FIR sum with the kernel's own index
+    arithmetic (csrc/decim_fir.cu, decim_fir_phase_kernel), in numpy.  Per
+    block of 32*R outputs: a window of tile + Q - 1 rows of D samples at an
+    odd pitch, zero outside [0, end), where end is one past the last sample
+    a tap reads; the reversed taps by phase, hq[p][q] = h_rev[p + q*D],
+    Q = ceil(T / D) a phase, zero past T.  Lane l owns outputs l*R ..
+    l*R+R-1 and slides a register window of 2R-1 samples down each phase,
+    R taps and R new rows a group, the last Q % R taps as a shorter group;
+    warp w takes phases w, w+warps, ..; the warps' partial sums are added
+    at the end."""
+    T = len(taps)
+    s = np.concatenate([hist, x])
+    tile, Q, pitch = 32 * R, -(-T // D), tfb.phase_pitch(D)
+    rows = tile + Q - 1
+    end = min(len(s), s0 + (M - 1) * D + T)
+    u = np.arange(D)[:, None] + np.arange(Q)[None, :] * D
+    hq = np.where(u < T, taps[::-1][np.minimum(u, T - 1)], 0).astype(taps.dtype)
+    y = np.zeros(M, np.complex64)
+    lane = np.arange(32)
+    for m0 in range(0, M, tile):
+        win = np.full(rows * pitch, np.nan + 0j, np.complex64)  # a word never staged must never be read
+        i = np.arange(rows * D)
+        g = s0 + m0 * D + i
+        inside = (g >= 0) & (g < end)
+        win[i + (i // D) * (pitch - D)] = np.where(inside, s[np.clip(g, 0, len(s) - 1)], 0)
+        red = np.zeros((warps, R, 32), np.complex64)
+        for wp in range(warps):
+            acc = np.zeros((R, 32), np.complex64)
+            for p in range(wp, D, warps):
+                at = lane * R * pitch + p
+                w = [win[at + j * pitch] for j in range(R - 1)] + [None] * R
+                at = at + (R - 1) * pitch
+                for q0 in range(0, Q, R):
+                    K = min(R, Q - q0)  # the last group is the shorter one
+                    for j in range(K):
+                        w[R - 1 + j] = win[at + j * pitch]
+                    for j in range(K):
+                        for r in range(R):
+                            acc[r] += hq[p, q0 + j] * w[j + r]
+                    at = at + R * pitch
+                    w[: R - 1] = w[R : 2 * R - 1]
+            red[wp] = acc
+        out = red.sum(0)
+        for j in range(min(tile, M - m0)):
+            y[m0 + j] = out[j % R, j // R]
+    return y
+
+
+@pytest.mark.parametrize("s0", [0, 37])
+@pytest.mark.parametrize("complex_taps", [False, True])
+@pytest.mark.parametrize("T,D", [(546, 50), (868, 250), (46, 2), (728, 12), (2500, 8)])
+def test_phase_major_form_matches_plain(rng, T, D, complex_taps, s0):
+    """The kernel's phase-major index arithmetic, evaluated in numpy over
+    [hist, x] with a ragged last tile and a ragged remainder of x that
+    holds NaN (past the last sample a tap reads: it must not be staged),
+    against ``decim_fir_plain`` within 1e-5 of peak."""
+    M = tfb.PHASE_TILE + 41
+    t = (rng.standard_normal(T) / np.sqrt(T)).astype(np.float32)
+    if complex_taps:
+        t = (t * np.exp(1j * 0.37 * np.arange(T))).astype(np.complex64)
+    hist, x = crandn(rng, T - 1 + s0), crandn(rng, M * D + D // 2)
+    x[M * D :] = np.nan
+    got = phase_major_form(hist, x, t, D, s0, M)
+    clean = x.copy()
+    clean[M * D :] = 0
+    ref = tfb.decim_fir_plain(torch.from_numpy(hist), torch.from_numpy(clean), torch.from_numpy(t), D, s0, M)
+    assert np.isfinite(got).all()
+    close_to_peak(got, ref.numpy())
 
 
 # -- dispatch -------------------------------------------------------------------------

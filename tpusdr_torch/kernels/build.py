@@ -82,10 +82,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.tpusdr_decim_fir.argtypes = [
-            p, i64, p, i64, p, i, i, i, i64, i64, i, i, p, i, p,
+            p, i64, p, i64, p, i, i, i, i64, i64, i, i, i, p, i, p,
         ]
         lib.tpusdr_decim_fir.restype = i
-        lib.tpusdr_decim_fir_smem.argtypes = [i, i, i, i]
+        lib.tpusdr_decim_fir_smem.argtypes = [i, i, i, i, i, i]
         lib.tpusdr_decim_fir_smem.restype = i64
         lib.tpusdr_fm_fused.argtypes = [
             p, i64, p, i, i, ctypes.c_uint32, ctypes.c_uint32,

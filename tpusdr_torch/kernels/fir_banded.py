@@ -13,9 +13,12 @@ The two entry points keep the JAX signatures and output contracts.  A
 CUDA tensor launches the kernel; a CPU tensor takes the plain version, the
 banded ``torch.matmul`` form of ``ops.fir._fir_mxu_cc``.
 
-``decim_fir_plan`` is the card's shape rule: it picks the kernel's tile
-(outputs per block) and tap chunk so that one block's shared memory stays
-within an H100's 232,448 bytes for every shape the receivers build.
+``decim_fir_plan`` is the card's shape rule: from (T, D, M) it picks the
+kernel's inner loop (phase-major with register reuse for a long tick at a
+moderate D, lanes across taps else), its tile (outputs per block) and tap
+chunk, so that one block's shared memory stays within an H100's 232,448
+bytes for every shape the receivers build and the grid fills the card's
+132 SMs where M allows it.
 
 The module also carries the JAX package's pure shape rules (``_plan``,
 ``eligible``, ``prelude_plan``, ``prelude_eligible``), thresholds
@@ -29,6 +32,8 @@ not (:431); the port has no split, so here the rule and the kernel agree.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -41,7 +46,14 @@ _RP_CANDIDATES = (200, 160, 120, 80, 40, 32, 24, 16, 8)
 _GUARD = 8  # prelude rows carried across ticks
 
 SMEM_LIMIT = 232_448  # shared memory one block may opt into on an H100
-TILES = (64, 32, 16, 8)  # outputs per block the kernel is built for
+SM_SMEM = 233_472  # shared memory of one SM; each resident block reserves 1 KB of it
+SM_COUNT = 132  # streaming multiprocessors of an H100 SXM
+MIN_BLOCKS = 2 * SM_COUNT  # a launch that fills the card: two blocks an SM
+TILES = (64, 32, 16, 8)  # outputs per block the lanes-across-taps form is built for
+KERNEL_WARPS = 8  # warps of one block
+PHASE_R = 7  # outputs one thread owns in the phase-major form
+PHASE_TILE = 32 * PHASE_R  # its outputs per block: lanes across outputs
+PHASE_MIN_BLOCKS = 2 * SM_COUNT // 3  # the grid from which the phase-major form wins
 
 
 # -- the JAX package's shape rules (fir_banded_pallas.py:94-116, 392-436) --
@@ -95,10 +107,44 @@ def prelude_eligible(T: int, D: int, N: int, complex_taps: bool) -> bool:
 # -- the card's shape rule -------------------------------------------------
 
 
-def decim_fir_smem(D: int, complex_taps: bool, tile: int, chunk: int) -> int:
-    """Shared memory of one D-FIR block: the window of ``tile`` outputs over
-    ``chunk`` taps, then the chunk's taps (csrc/decim_fir.cu smem_bytes)."""
-    return ((tile - 1) * D + chunk) * 8 + chunk * (8 if complex_taps else 4)
+class DecimFirPlan(NamedTuple):
+    """How one D-FIR launch is cut: the kernel's inner loop (``FORMS``),
+    ``tile`` outputs a block, ``chunk`` taps a pass (T unless shared memory
+    forces less)."""
+
+    form: str
+    tile: int
+    chunk: int
+
+
+FORMS = ("taps", "phase")  # the kernel's inner loops, by their index on the C side
+
+
+def phase_pitch(D: int) -> int:
+    """Samples between rows of the phase-major window: D made odd.  Lane l
+    reads row l*R + n of phase p, at 8-byte word (l*R + n) * pitch + p; with
+    R and the pitch both odd the 16 lanes of a half-warp fall into 16
+    different 8-byte banks, so a 64-bit load has no conflict."""
+    return D | 1
+
+
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` bytes of dynamic shared memory that share one SM."""
+    return SM_SMEM // (smem + 1024)
+
+
+def decim_fir_smem(T: int, D: int, complex_taps: bool, plan: DecimFirPlan) -> int:
+    """Shared memory of one D-FIR block (csrc/decim_fir.cu smem_bytes and
+    phase_smem_bytes).  Form "taps": the window of ``tile`` outputs over
+    ``chunk`` taps, then the chunk's taps.  Form "phase": tile + Q - 1 rows
+    of D samples at an odd pitch, the warps' partial sums, and the taps by
+    phase, Q = ceil(T / D) of them a phase."""
+    tap_bytes = 8 if complex_taps else 4
+    if plan.form == "phase":
+        Q = cdiv(T, D)
+        rows = plan.tile + Q - 1
+        return (rows * phase_pitch(D) + KERNEL_WARPS * plan.tile) * 8 + D * Q * tap_bytes
+    return ((plan.tile - 1) * D + plan.chunk) * 8 + plan.chunk * tap_bytes
 
 
 def tap_chunk(T: int, fixed_bytes: int, bytes_per_tap: int) -> int:
@@ -113,15 +159,39 @@ def tap_chunk(T: int, fixed_bytes: int, bytes_per_tap: int) -> int:
     return chunk
 
 
-def decim_fir_plan(T: int, D: int, complex_taps: bool) -> tuple[int, int]:
-    """(tile, chunk) of a D-FIR launch: the largest tile whose window and
-    all T taps fit ``SMEM_LIMIT``, else the smallest tile with taps taken
-    in chunks.  The main WBFM shape (546, /50) keeps the 64-output tile."""
-    for tile in TILES:
-        if decim_fir_smem(D, complex_taps, tile, T) <= SMEM_LIMIT:
-            return tile, T
-    tile = TILES[-1]
-    return tile, tap_chunk(T, (tile - 1) * D * 8, 16 if complex_taps else 12)
+def decim_fir_plan(T: int, D: int, complex_taps: bool, M: int) -> DecimFirPlan:
+    """The plan of a D-FIR launch of M outputs.
+
+    The phase-major form (a quarter of the shared-memory traffic a MAC, no
+    idle lanes) where its 224-output blocks fit shared memory, every warp
+    has a phase (D >= 8) and the grid covers at least ``PHASE_MIN_BLOCKS``
+    SMs: a block is then the only one on its SM, so a smaller grid leaves
+    SMs idle while its time stays that of one block.
+
+    Else lanes across taps.  Among the tiles whose window and all T taps
+    fit ``SMEM_LIMIT``: of those small enough for two blocks to share an SM,
+    the largest that still gives ``MIN_BLOCKS`` blocks, else the smallest
+    (a large tile reuses each tap more often, but fewer blocks than SMs
+    leave the card idle: at (868, /250) on a 1,280,000-sample tick tile 64
+    is 80 blocks, tile 16 is 320); where no tile lets two blocks share an
+    SM, the largest, since rounds of smaller blocks only lose tap reuse.
+    Where not even 8 outputs fit with all the taps, the taps go in chunks."""
+    phase = DecimFirPlan("phase", PHASE_TILE, T)
+    if (D >= KERNEL_WARPS and decim_fir_smem(T, D, complex_taps, phase) <= SMEM_LIMIT
+            and cdiv(M, PHASE_TILE) >= PHASE_MIN_BLOCKS):
+        return phase
+
+    def plan(tile, chunk=T):
+        return DecimFirPlan("taps", tile, chunk)
+
+    fits = [t for t in TILES if decim_fir_smem(T, D, complex_taps, plan(t)) <= SMEM_LIMIT]
+    if not fits:
+        tile = TILES[-1]
+        return plan(tile, tap_chunk(T, (tile - 1) * D * 8, 16 if complex_taps else 12))
+    shared = [t for t in fits if blocks_per_sm(decim_fir_smem(T, D, complex_taps, plan(t))) >= 2]
+    if not shared:
+        return plan(fits[0])
+    return plan(next((t for t in shared if cdiv(M, t) >= MIN_BLOCKS), shared[-1]))
 
 
 # -- kernel and plain version ----------------------------------------------
@@ -158,8 +228,9 @@ def _launch(hist, x, taps, D: int, s0: int, M: int) -> torch.Tensor:
     if taps.dtype not in (torch.float32, torch.complex64) or taps.dim() != 1:
         raise ValueError("decim_fir: taps must be 1-D float32 or complex64")
     cplx_taps = int(taps.is_complex())
-    tile, chunk = decim_fir_plan(T, D, bool(cplx_taps))
-    smem = lib.tpusdr_decim_fir_smem(D, cplx_taps, tile, chunk)
+    plan = decim_fir_plan(T, D, bool(cplx_taps), M)
+    form = FORMS.index(plan.form)
+    smem = lib.tpusdr_decim_fir_smem(T, D, cplx_taps, form, plan.tile, plan.chunk)
     dev, stream = launch_target(x, smem, f"decim_fir (T={T}, D={D})")
     x = x.contiguous()
     hist = hist.contiguous() if hist is not None else None
@@ -176,8 +247,9 @@ def _launch(hist, x, taps, D: int, s0: int, M: int) -> torch.Tensor:
         D,
         s0,
         M,
-        tile,
-        chunk,
+        form,
+        plan.tile,
+        plan.chunk,
         y.data_ptr(),
         dev,
         stream,

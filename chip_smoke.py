@@ -12,7 +12,9 @@ Phases (each prints lines; any failure exits non-zero):
      and at the digital app's (728, /12); FM-fused at NBFM 2 Msps and at the single-stage
      NBFM 20 Msps shape (9660, /666), each with the plan its rule picks; K4 at the AM shapes (868, /250) on a
      20 Msps tick, (46, /2) and (6665, /500) and at the JSON graph's
-     (546, /50); the copy floor K5 at ticks of 1,280,000 and 2,048,000
+     (546, /50), each through the streaming call (the carried T-1 samples
+     through the second pointer) with the plan its rule picks, timed on a
+     fixed tick and on ticks that rotate past the L2 cache; the copy floor K5 at ticks of 1,280,000 and 2,048,000
      samples, n_split 1 and the best of 2/5/10, on ticks that rotate past
      the L2 cache; the staging probes K6-K8 at the probes' shapes on random
      data.  Each row also gets its bound (bytes over 3.35 TB/s or
@@ -36,6 +38,8 @@ Phases (each prints lines; any failure exits non-zero):
      am_receiver(fir_mode='pallas', fold_shift=False) from a FileIqSource
      (K4 for both RF stages).  Both must decode the tone (amplitude 0.25,
      SNR > 60 dB), match the CPU path on the first 2 ticks and each other;
+     one more tick of the K4 chain under the profiler must concatenate no
+     operand as long as a K4 stage's input;
   6. the floor probe (``tpusdr_torch.benchmarks.kernel_floor_probe``)
      in-process at the 1,280,000-sample tick: K5 at four n_split, K2
      streaming and on one fixed tick, K1 in its three history forms;
@@ -44,7 +48,10 @@ Phases (each prints lines; any failure exits non-zero):
      QuadDemod -> Deemphasis -> Resampler 3/25 -> WavWriter) through
      ``compile_app(...).run()`` on a named queue: the tone must decode, the
      audio must match phase 3's and the same app on the CPU, K4 must launch
-     once a tick; a checkpoint after 8 ticks resumed must give the same
+     once a tick; one more graph tick under the profiler, as it runs and
+     with the Fir block as it was (the tick concatenated behind its carry
+     in front of the kernel), must show one launch fewer and no tick-sized
+     concatenation, and the Fir stage's two calling forms are timed; a checkpoint after 8 ticks resumed must give the same
      audio bit for bit; two such graphs on two queues through
      ``MergedRunner`` must match their single runs;
   8. the digital-voice app ``tpusdr_torch.apps.digital`` on its synthetic
@@ -232,6 +239,7 @@ def lowpass(T: int, cutoff: float) -> np.ndarray:
 
 def kernel_phase(torch, card, dev, am_chain) -> dict:
     """Phase 2: every kernel against its plain version."""
+    from tpusdr_torch.benchmarks import plan_probe
     from tpusdr_torch.graph.blocks import FusedFmDemod
     from tpusdr_torch.kernels import copy_floor, fir_banded, fir_poly, fm_fused, staging_probes
     from tpusdr_torch.models import receiver
@@ -390,39 +398,37 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
     print(f"phase 2 FM-fused (9660, /666) M={Mn}: {b_n['ms'] * 1e3:.2f} us against a bound of "
           f"{b_n['bound_ms'] * 1e3:.2f} us ({b_n['bound_by']}: {b_n['bytes']} B, {b_n['operations']} operations)", flush=True)
 
-    # K4 at the AM path's shapes, with the path's own taps
-    for name, L in (("rf_fir1", TICK), ("rf_fir2", TICK // 250)):
-        blk = am_chain.get_block(name)
-        Tk, Dk = blk.taps.shape[-1], blk.decimation
-        tk = blk.taps.to(dev)
-        xk = crandn((Tk - 1) + L)
-        cmp[f"k4_{Dk}"] = compare(
-            torch, card, f"K4 fir_decim T={Tk} D={Dk} N={L}",
-            lambda xk=xk, tk=tk, Dk=Dk: fir_poly.fir_decim(xk, tk, Dk),
-            lambda xk=xk, tk=tk, Dk=Dk, Mk=L // Dk: fir_poly.fir_decim_plain(xk, tk, Dk, Mk),
+    # K4 at its four shapes with the paths' own taps (the single-stage AM
+    # stage with a low-pass of its width), through the streaming call: the
+    # carried T-1 samples through the second pointer, then the tick
+    k4_shapes = [(f"k4_{blk.decimation}", blk.taps.to(dev), blk.decimation, L)
+                 for blk, L in ((am_chain.get_block("rf_fir1"), TICK), (am_chain.get_block("rf_fir2"), TICK // 250))]
+    k4_shapes += [("k4_500", torch.from_numpy(lowpass(Ta, 0.0005)).to(dev), Da, TICK),
+                  ("k4_graph", shiftfir.taps.to(dev), D, TICK)]  # the JSON graph's stage: the WBFM taps unfolded
+    for key, tk, Dk, L in k4_shapes:
+        Tk, Mk = tk.shape[-1], L // Dk
+        hk, xk = crandn(Tk - 1), crandn(L)
+        plan = fir_poly.fir_decim_plan(Tk, Dk, Mk)
+        print(f"phase 2 K4 plan at ({Tk}, /{Dk}), M={Mk}: {plan}, {fir_poly.fir_decim_blocks(Mk, plan)} blocks of "
+              f"{fir_poly.fir_decim_smem(Tk, Dk, plan)} B", flush=True)
+        cmp[key] = compare(
+            torch, card, f"K4 fir_decim T={Tk} D={Dk} N={L} {plan}",
+            lambda xk=xk, tk=tk, Dk=Dk, hk=hk: fir_poly.fir_decim(xk, tk, Dk, history=hk),
+            lambda xk=xk, tk=tk, Dk=Dk, hk=hk, Mk=Mk: fir_poly.fir_decim_plain(xk, tk, Dk, Mk, hk),
             fir_poly.fir_decim,
-            *fir_cost(xk.shape[0], Tk, L // Dk, False),
-            **conv1d_fir(torch, xk, tk, Dk, L // Dk),
+            *fir_cost(L + Tk - 1, Tk, Mk, False),
+            **conv1d_fir(torch, torch.cat([hk, xk]), tk, Dk, Mk),
         )
-    tl = torch.from_numpy(lowpass(Ta, 0.0005)).to(dev)
-    xl = crandn((Ta - 1) + TICK)
-    cmp["k4_500"] = compare(
-        torch, card, f"K4 fir_decim T={Ta} D={Da} N={TICK}",
-        lambda: fir_poly.fir_decim(xl, tl, Da),
-        lambda: fir_poly.fir_decim_plain(xl, tl, Da, TICK // Da),
-        fir_poly.fir_decim,
-        *fir_cost(xl.shape[0], Ta, TICK // Da, False),
-    )
-    # K4 at the JSON graph's stage: the WBFM taps unfolded, (546, /50)
-    xg = crandn((T - 1) + TICK)
-    cmp["k4_graph"] = compare(
-        torch, card, f"K4 fir_decim T={T} D={D} N={TICK}",
-        lambda: fir_poly.fir_decim(xg, shiftfir.taps, D),
-        lambda: fir_poly.fir_decim_plain(xg, shiftfir.taps, D, TICK // D),
-        fir_poly.fir_decim,
-        *fir_cost(xg.shape[0], T, TICK // D, False),
-        **conv1d_fir(torch, xg, shiftfir.taps, D, TICK // D),
-    )
+        # the same plan on ticks that rotate past the L2 cache (the timing
+        # probe's launches, which no wrapper counts)
+        rot = plan_probe.probe("fir_decim", Tk, Dk, Mk, False, [(plan.form, plan.tile)], input_mode="rotate",
+                               device=dev)[0]
+        check(rot["ok"] and rot["is_rule_plan"], f"K4 ({Tk}, /{Dk}) from device memory: {rot}")
+        cmp[key]["device_memory_ms"] = rot["us"] / 1e3
+        print(f"phase 2 K4 ({Tk}, /{Dk}) M={Mk}: {cmp[key]['ms'] * 1e3:.2f} us on a fixed tick, "
+              f"{rot['us']:.2f} from device memory ({rot['n_unique']} ticks in rotation)", flush=True)
+    check(fir_poly.fir_decim_plan(T, D, TICK // D) == fir_poly.FirDecimPlan("phase", 224, T),
+          "the JSON graph's K4 stage takes the phase-major form, 7 outputs a lane")
 
     # K5: the copy floor at both ticks; the timed calls rotate through
     # ticks that together exceed the L2 cache, so every byte comes from
@@ -561,44 +567,56 @@ def nbfm_phase(torch, card, dev, kernels_used: dict) -> dict:
     return run
 
 
+def profile_tick(torch, step, min_len: int) -> dict:
+    """One warm tick, ``step()``, under ``torch.profiler``: its launches and
+    device time, and, through a wrapper around ``torch.cat`` for that tick,
+    every concatenation with an operand of at least ``min_len`` samples (a
+    kernel that reads [history, tick] through two pointers needs none).
+    ``step`` leaves no trace but its result, and a session that saw no
+    device activity (it happens on a later session of a process) is run
+    again, up to three times."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cats, real_cat = [], torch.cat
+
+    def spy_cat(tensors, *args, **kw):
+        lengths = [t.shape[-1] for t in tensors if t.dim()]
+        if max(lengths, default=0) >= min_len:
+            cats.append(lengths)
+        return real_cat(tensors, *args, **kw)
+
+    for _ in range(3):
+        cats.clear()
+        torch.cat = spy_cat
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                step()
+                torch.cuda.synchronize()
+        finally:
+            torch.cat = real_cat
+        on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if on_card:
+            break
+    return {
+        "tick_launches": len(on_card) or None,  # None: the profiler saw no device activity here
+        "tick_device_us": sum(e.device_time for e in on_card) or None,
+        "tick_sized_cats": cats,
+    }
+
+
 def nbfm_tick_profile(torch, chain, ticks, dev) -> dict:
-    """One more warm NBFM tick under ``torch.profiler``: the launches and
-    device time of the tick, and, through a wrapper around ``torch.cat``
-    for that tick, every concatenation with an operand as long as the tick
-    (there must be none: the kernel reads [history, tick] through two
-    pointers).  Beside it the front end's two calling forms on
-    that tick, timed in turns: the tick concatenated behind its history and
-    handed over as one tensor, as before the second pointer, and the pair
-    handed over as it lies."""
+    """One more warm NBFM tick under ``profile_tick``: no operand as long as
+    the tick may be concatenated.  Beside it the front end's two calling
+    forms on that tick, timed in turns: the tick concatenated behind its
+    history and handed over as one tensor, as before the second pointer,
+    and the pair handed over as it lies."""
     from tpusdr_torch.kernels import fm_fused
     from tpusdr_torch.utils.profiling import device_ms
 
     state = chain.init_state(device=dev)
     for x in ticks[:2]:
         state, _ = chain.apply(state, x)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    tick, cats, real_cat = ticks.shape[-1], [], torch.cat
-
-    def spy_cat(tensors, *args, **kw):
-        lengths = [t.shape[-1] for t in tensors if t.dim()]
-        if max(lengths, default=0) >= tick:
-            cats.append(lengths)
-        return real_cat(tensors, *args, **kw)
-
-    torch.cat = spy_cat
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            chain.apply(state, ticks[2])
-            torch.cuda.synchronize()
-    finally:
-        torch.cat = real_cat
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {
-        "tick_launches": len(on_card) or None,  # None: the profiler saw no device activity here
-        "tick_device_us": sum(e.device_time for e in on_card) or None,
-        "tick_sized_cats": cats,
-    }
+    out = profile_tick(torch, lambda: chain.apply(state, ticks[2]), ticks.shape[-1])
     front = chain.get_block("frontend")
     tail = state["frontend"]["tail"][-front.history:]
     x, taps = ticks[2], front.taps
@@ -672,6 +690,16 @@ def am_phase(torch, card, dev, pallas_chain, kernels_used: dict) -> dict:
         "vs_cli_db": err_db(audio_k4, audio_cli), "samples": len(audio_k4),
         "runstats_msps_in": stats.msps_in, "wall_s": stats.wall_seconds, "launches": counts,
     }
+    # one more warm tick of the K4 chain: no operand as long as the input of
+    # its second K4 stage (TICK // 250 samples) may be concatenated
+    state = pallas_chain.init_state(device=dev)
+    warm = [torch.from_numpy(words[i * TICK : (i + 1) * TICK]).to(dev) for i in range(3)]
+    for x in warm[:2]:
+        state, _ = pallas_chain.apply(state, x)
+    saved = kernels.fir_decim.launches
+    runs["k4_runner"].update(profile_tick(torch, lambda: pallas_chain.apply(state, warm[2]),
+                                          TICK // pallas_chain.get_block("rf_fir1").decimation))
+    kernels.fir_decim.launches = saved
     print(f"phase 5 AM 20 Msps int8 K4 StreamRunner [{card}]: " + json.dumps(runs["k4_runner"]), flush=True)
     for label, r in runs.items():
         check(abs(r["amp"] - AM_TONE_AMP) < 0.02, f"AM {label}: tone amplitude {r['amp']:.4f}")
@@ -680,6 +708,8 @@ def am_phase(torch, card, dev, pallas_chain, kernels_used: dict) -> dict:
     n_audio = N_TICKS * TICK * pallas_chain.up // pallas_chain.down
     check(len(audio_cli) == len(audio_k4) == n_audio, f"AM: audio lengths {len(audio_cli)}, {len(audio_k4)}")
     check(runs["k4_runner"]["vs_cli_db"] <= AUDIO_TOL_DB, "AM: K4 runner vs CLI audio")
+    check(not runs["k4_runner"]["tick_sized_cats"],
+          f"AM K4 runner: a K4 stage's input is concatenated: {runs['k4_runner']['tick_sized_cats']}")
     return runs
 
 
@@ -807,6 +837,15 @@ def graph_phase(torch, card, dev, wbfm_audio, kernels_used: dict) -> dict:
     check(snr > SNR_MIN_DB, f"JSON graph: tone SNR {snr:.1f} dB")
     check(run["app"]["gpu_vs_cpu_db"] <= AUDIO_TOL_DB, f"JSON graph: GPU vs CPU {run['app']['gpu_vs_cpu_db']:.1f} dB")
     check(run["app"]["vs_fm_receiver_db"] <= AUDIO_TOL_DB, f"JSON graph vs fm_receiver {run['app']['vs_fm_receiver_db']:.1f} dB")
+    run["tick"] = graph_tick_profile(torch, app, dev)
+    print(f"phase 7 JSON graph tick, the Fir stage as it runs and as it was [{card}]: " + json.dumps(run["tick"]),
+          flush=True)
+    after, before = run["tick"]["two_pointers"], run["tick"]["cat_then_kernel"]
+    check(not after["tick_sized_cats"] and len(before["tick_sized_cats"]) == 1,
+          f"JSON graph: tick-sized concatenations {after['tick_sized_cats']}, before {before['tick_sized_cats']}")
+    if after["tick_launches"] is not None and before["tick_launches"] is not None:
+        check(after["tick_launches"] == before["tick_launches"] - 1,
+              f"JSON graph: {after['tick_launches']} launches a tick, {before['tick_launches']} before")
 
     # (b) a checkpoint after 8 ticks, resumed by a fresh app
     half = N_TICKS // 2
@@ -867,6 +906,51 @@ def graph_phase(torch, card, dev, wbfm_audio, kernels_used: dict) -> dict:
     check(run["merged"]["two_queues_equal_single"], "MergedRunner on two queues differs from the single runs")
     check(run["merged"]["one_queue_equal_single"], "MergedRunner on one queue differs from the single runs")
     return run
+
+
+def graph_tick_profile(torch, app, dev) -> dict:
+    """One more warm tick of the JSON graph under ``profile_tick``, twice: as
+    it runs (K4 reads [carry, tick] through two pointers) and with the Fir
+    block as it was before the second pointer (the tick concatenated behind
+    its carry, then the kernel); beside them the Fir stage's two calling
+    forms on that tick, timed in turns.  No launch here is counted."""
+    import types
+
+    from tpusdr_torch.kernels import fir_poly
+    from tpusdr_torch.utils.profiling import device_ms
+
+    graph, saved = app.graph, fir_poly.fir_decim.launches
+    source = iter(app.source_factory(app.tick))
+    ticks = [torch.from_numpy(next(source)).to(dev) for _ in range(3)]
+    state = graph.init_state(device=dev)
+    for x in ticks[:2]:
+        state, _ = graph.apply(state, x)
+    fir = graph.get_block("rf.fir")
+    T, D = fir.taps.shape[-1], fir.decimation
+
+    def cat_then_kernel(self, carry, x):
+        ext = torch.cat([carry, x])
+        return ext[ext.shape[-1] - (T - 1) :].clone(), fir_poly.fir_decim(ext, self.taps, self.decimation)
+
+    out = {"two_pointers": profile_tick(torch, lambda: graph.apply(state, ticks[2]), app.tick)}
+    fir._apply_pallas = types.MethodType(cat_then_kernel, fir)
+    try:
+        out["cat_then_kernel"] = profile_tick(torch, lambda: graph.apply(state, ticks[2]), app.tick)
+    finally:
+        del fir._apply_pallas
+    carry, x = state["rf.fir"], ticks[2]
+
+    def one_tensor():
+        return fir_poly.fir_decim(torch.cat([carry, x]), fir.taps, D)
+
+    def two_pointers():
+        return fir_poly.fir_decim(x, fir.taps, D, history=carry)
+
+    check(bool(torch.equal(one_tensor(), two_pointers())), "JSON graph: K4 through two pointers differs from one tensor")
+    a1, b1, b2, a2 = device_ms(one_tensor), device_ms(two_pointers), device_ms(two_pointers), device_ms(one_tensor)
+    fir_poly.fir_decim.launches = saved
+    out.update(fir_cat_then_kernel_us=(a1 + a2) * 500, fir_two_pointers_us=(b1 + b2) * 500)
+    return out
 
 
 def digital_phase(torch, card, dev, kernels_used: dict) -> dict:
@@ -944,7 +1028,8 @@ def main() -> int:
     # -- phase 9: report --------------------------------------------------------
     # launches: the count of the main path that runs the kernel at the row's
     # shape (K1 WBFM default, the AM CLI and the digital app; K2 WBFM fused,
-    # K3 NBFM, K4 the JSON graph, K5-K8 the probes' entry points)
+    # K3 NBFM, K4 the JSON graph and a stage of the AM K4 runner, K5-K8 the
+    # probes' entry points)
     src = "tpusdr_torch/kernels/csrc/"
     kern = [
         {"name": "decim_fir (history form)", "route": "cuda", "source": src + "decim_fir.cu",
@@ -968,6 +1053,12 @@ def main() -> int:
         {"name": "fir_decim", "route": "cuda", "source": src + "fir_poly.cu",
          "replaces": "tpusdr/kernels/fir_pallas.py:119",
          "launches": used["graph:fir_decim"], **_nums(cmp["k4_graph"])},
+        {"name": "fir_decim (AM K4 runner stage 1 (868, /250))", "route": "cuda", "source": src + "fir_poly.cu",
+         "replaces": "tpusdr/kernels/fir_pallas.py:119",
+         "launches": used["fir_decim"] // 2, **_nums(cmp["k4_250"])},
+        {"name": "fir_decim (AM K4 runner stage 2 (46, /2))", "route": "cuda", "source": src + "fir_poly.cu",
+         "replaces": "tpusdr/kernels/fir_pallas.py:119",
+         "launches": used["fir_decim"] // 2, **_nums(cmp["k4_2"])},
         {"name": "copy_floor", "route": "cuda", "source": src + "copy_floor.cu",
          "replaces": "benchmarks/kernel_floor_probe.py:336",
          "launches": used["probe:copy_floor"], **_nums(cmp[f"k5_{TICK}_best"])},

@@ -215,6 +215,31 @@ def test_fir_block_pallas_batched_takes_poly(rng):
     close_to_peak(ty.numpy(), jcplx.to_numpy(jy))
 
 
+@pytest.mark.parametrize("T,D,ticks", [(868, 250, (2000, 500, 867, 1750)), (46, 2, (600, 20, 45, 402))])
+def test_fir_block_pallas_carry_without_the_cat(rng, T, D, ticks):
+    """``Fir(mode='pallas')`` hands K4 its carry as the history through the
+    second pointer: over ticks that include one shorter than T-1 and one of
+    exactly T-1, its outputs and carry equal the JAX block's (kernel in
+    interpret mode) within 1e-5 of peak, and equal bit for bit the form
+    that concatenated [carry, tick] in front of the kernel."""
+    t = sps.firwin(T, 0.8 / D).astype(np.float32)
+    jb, tb = JB.Fir(t, D, mode="pallas"), TB.Fir(t, D, mode="pallas")
+    z = (rng.standard_normal(sum(ticks)) + 1j * rng.standard_normal(sum(ticks))).astype(np.complex64)
+    parts = np.split(z, np.cumsum(ticks)[:-1])
+    outs, js, ts = stream_both(jb, tb, parts)
+    for (jy, ty), n in zip(outs, ticks):
+        assert ty.shape == (n // D,)
+        close_to_peak(ty, jy)
+    assert_carry_close(js, ts)
+    state = ref_state = tb.init_state()
+    for x in map(torch.from_numpy, parts):
+        state, y = tb.apply(state, x)
+        ext = torch.cat([ref_state, x])
+        ref = TB.fir_decim(ext, tb.taps, D)
+        ref_state = ext[ext.shape[-1] - (T - 1) :].clone()
+        assert torch.equal(y, ref) and torch.equal(state, ref_state)
+
+
 @pytest.mark.parametrize("mode", ["poly", "fft", "conv"])
 def test_freqshiftfir_other_modes(rng, mode):
     t = sps.firwin(89, 0.05).astype(np.float32)

@@ -234,7 +234,11 @@ def test_shared_memory_rules_match_the_kernels(cuda):
             for tile in tfm.PROBE_PHASE_TILES:
                 fm = tfm.FmFusedPlan("phase", tile, T)
                 assert lib.tpusdr_fm_fused_smem(T, D, 1, tile, T) == tfm.fm_fused_smem(T, D, fm)
-    assert lib.tpusdr_fir_poly_smem(6665) == 6665 * 4
+            for form, tiles in (("taps", tfp.TAP_TILES), ("phase", tfp.PHASE_TILES), ("outputs", tfp.OUTPUT_TILES)):
+                for tile in tiles:
+                    for chunk in {46, T} if form != "phase" else {T}:
+                        plan = tfp.FirDecimPlan(form, tile, chunk)
+                        assert lib.tpusdr_fir_poly_smem(T, D, tfp.FORMS.index(form), tile, chunk) == tfp.fir_decim_smem(T, D, plan)
 
 
 def test_long_taps_run_in_chunks(cuda, rng):
@@ -255,16 +259,67 @@ def test_long_taps_run_in_chunks(cuda, rng):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * 0.5)
 
 
-@pytest.mark.parametrize("T,D,L", [(868, 250, 867 + 1_280_000), (46, 2, 45 + 5120), (6665, 500, 6664 + 1_280_000)])
+@pytest.mark.parametrize("T,D,L", [(868, 250, 867 + 1_280_000), (46, 2, 45 + 5120), (6665, 500, 6664 + 1_280_000),
+                                   (546, 50, 545 + 1_280_000)])
 def test_fir_decim_k4(cuda, rng, T, D, L):
-    """K4 at the AM path's shapes: (868, /250) on a 20 Msps tick, (46, /2)
-    on its 5,120-sample input, and the single long stage."""
+    """K4 through its wrapper at the paths' shapes: (868, /250) on a 20 Msps
+    tick, (46, /2) on its 5,120-sample input, the single long stage and the
+    JSON graph's (546, /50); the carried T-1 samples through the second
+    pointer and the whole input as one tensor give the same outputs."""
     h = taps(T, False, cuda)
     x = crandn(rng, cuda, L)
     before = tfp.fir_decim.launches
-    got = tfp.fir_decim(x, h, D)
+    got = tfp.fir_decim(x[T - 1 :], h, D, history=x[: T - 1])
     assert tfp.fir_decim.launches == before + 1
     close_to_peak(got, tfp.fir_decim_plain(x, h, D, (L - (T - 1)) // D))
+    assert torch.equal(got, tfp.fir_decim(x, h, D))
+
+
+@pytest.mark.parametrize("hist", ["tail", "none"])
+@pytest.mark.parametrize(
+    "T,D,M,form,tile,chunk",
+    [
+        (546, 50, 25_601, "phase", 224, None),  # the JSON graph's tick and one, R = 7
+        (546, 50, 25_601, "phase", 160, None),  # R = 5
+        (132, 66, 20_000, "phase", 160, None),  # T = Q * D: every phase has Q taps
+        (9, 12, 5_000, "phase", 224, None),  # T < D: Q = 1, three phases have no tap
+        (101, 9, 30_001, "phase", 160, None),  # odd D: the pitch is D itself
+        (868, 250, 5_120, "taps", 40, None),  # AM stage 1
+        (868, 250, 5_123, "taps", 64, None),
+        (868, 250, 5_123, "taps", 56, None),
+        (868, 250, 5_123, "taps", 48, None),
+        (6665, 500, 2_560, "taps", 24, None),  # single-stage AM
+        (6665, 500, 2_560, "taps", 32, None),
+        (6665, 500, 2_561, "taps", 16, None),
+        (5_000, 9, 3_001, "taps", 8, 1_024),  # taps in chunks, the last one short
+        (46, 2, 2_560, "outputs", 32, None),  # AM stage 2
+        (46, 2, 2_561, "outputs", 64, None),
+        (46, 2, 2_560, "outputs", 128, None),
+        (46, 2, 50_001, "outputs", 256, None),
+        (5, 7, 3_000, "outputs", 32, None),  # T < D
+        (300, 3, 4_001, "outputs", 128, 96),  # taps in chunks, the last one short
+    ],
+)
+def test_fir_decim_every_form(cuda, rng, T, D, M, form, tile, chunk, hist):
+    """Every form and tile of K4 through its C entry point against the plain
+    version, with and without the history through the second pointer, M
+    ragged against the tile; x ends in D // 2 NaN samples past the last one
+    a tap reads: they must reach no output."""
+    from tpusdr_torch.kernels.build import library
+
+    lib = library()
+    h = taps(T, False, cuda)
+    H = T - 1 if hist == "tail" else 0
+    z = crandn(rng, cuda, (T - 1) + M * D + D // 2)
+    n = (T - 1) + M * D
+    z[n:] = float("nan")
+    plan = tfp.FirDecimPlan(form, tile, T if chunk is None else chunk)
+    y = torch.full((M,), float("nan"), dtype=torch.complex64, device=cuda)
+    head, tail = tfp.launch_args(lib, z[:H] if H else None, z[H:], h, D, M, plan, y)
+    assert lib.tpusdr_fir_poly(*head, *tail) == 0
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(torch.view_as_real(y)).all())
+    close_to_peak(y, tfp.fir_decim_plain(z[:n], h, D, M))
 
 
 def am_ticks(n, fs, offset, n_ticks, fmt="int8"):

@@ -189,9 +189,141 @@ def test_fir_decim_refuses_what_k4_does_not_take(rng):
         lambda: tfp.fir_decim(z, torch.ones(9), 1),  # D = 1
         lambda: tfp.fir_decim(z.reshape(2, 250), torch.ones(9), 2),  # batched
         lambda: tfp.fir_decim(z, torch.ones(9, dtype=torch.complex64), 2),  # complex taps
+        lambda: tfp.fir_decim(z, torch.ones(9), 2, history=z.reshape(2, 250)),  # batched history
     ):
         with pytest.raises(ValueError, match="fir_decim"):
             bad()
+
+
+# the four shapes that reach K4 on the receiver paths, scaled down to a few thousand samples:
+# the JSON graph's (546, /50), the AM K4 runner's (868, /250) and (46, /2), the single-stage AM (6665, /500)
+K4_SHAPES = [(546, 50, 60), (868, 250, 12), (46, 2, 1500), (6665, 500, 6)]
+K4_PATH_SHAPES = [(546, 50, 25_600), (868, 250, 5_120), (46, 2, 2_560), (6665, 500, 2_560)]  # at their real M
+
+
+@pytest.mark.parametrize("H", ["tail", "none", 7])
+@pytest.mark.parametrize("T,D,M", K4_SHAPES)
+def test_fir_decim_history_equals_pallas_of_the_concatenation(rng, T, D, M, H):
+    """``fir_decim(x, taps, D, history=h)`` against ``fir_decim_pallas``
+    (interpret mode) of concat(h, x), for the streaming carry of T-1
+    samples, for none and for a short one; M counts both.  On the CPU the
+    split call is the whole one bit for bit."""
+    H = T - 1 if H == "tail" else 0 if H == "none" else H
+    z = crandn(rng, (T - 1) + M * D + D // 2)
+    h = (rng.standard_normal(T) / np.sqrt(T)).astype(np.float32)
+    ref = jcplx.to_numpy(fir_decim_pallas(jcplx.from_numpy(z), h, D, interpret=True))
+    zt, ht = torch.from_numpy(z), torch.from_numpy(h)
+    got = tfp.fir_decim(zt[H:], ht, D, history=zt[:H] if H else None)
+    assert got.shape == (M,)
+    close_to_peak(got.numpy(), ref)
+    assert torch.equal(got, tfp.fir_decim(zt, ht, D))
+
+
+# -- K4: the plan -------------------------------------------------------------------
+
+
+def _k4_smem_c_side(T, D, plan):
+    """csrc/fir_poly.cu, smem_bytes, written out."""
+    if plan.form == "phase":
+        Q = -(-T // D)
+        return ((plan.tile + Q - 1) * (D | 1) + 8 * plan.tile) * 8 + D * Q * 4
+    red = 256 if plan.form == "outputs" else 0
+    return ((plan.tile - 1) * D + plan.chunk + red) * 8 + plan.chunk * 4
+
+
+def _k4_stage_launches(chain, tick=None):
+    """((T, D, M), plan) of each RF stage of ``chain`` that reaches K4 (a
+    complex ``Fir`` in mode 'pallas' with real taps and D >= 2) on a tick of
+    ``tick`` RF samples."""
+    out, n = [], tick or RULE_TICK
+    for _, b in chain.blocks:
+        if isinstance(b, (TB.FusedFmDemod, TB.FreqShiftFir, TB.Fir)) and b.decimation > 1:
+            n //= b.decimation
+            if isinstance(b, TB.Fir) and b.mode == "pallas" and b.in_dtype == torch.complex64:
+                T, D = b.taps.shape[-1], b.decimation
+                out.append(((T, D, n), tfp.fir_decim_plan(T, D, n)))
+    return out
+
+
+def test_fir_decim_plan_over_every_k4_stage(monkeypatch):
+    """The rule over every RF stage that reaches K4: ``am_receiver`` and
+    ``fm_receiver`` in mode 'pallas' with the shift unfolded at 1-20 Msps,
+    multistage on and off, on ticks of 1,280,000 and 262,144 RF samples
+    (with the longest tap counts the design can return), and the four
+    shapes of the receiver paths at their own M.  Every plan fits one block's shared
+    memory, the Python count equals the C side's arithmetic, and each form
+    keeps its bounds: phase-major plans have D >= 8, R and the pitch odd so
+    that the half-warps' 64-bit loads are conflict-free (checked bank by
+    bank) and cover two thirds of the SMs; lanes across outputs only for
+    D < 8; no tile of a window form that fits stages fewer samples on its
+    busiest SM than the one picked."""
+    monkeypatch.setattr(tdesign, "lowpass_taps", _longest_candidate_taps)
+    seen = {((T, D, M), tfp.fir_decim_plan(T, D, M)) for T, D, M in K4_PATH_SHAPES}
+    for fs in (1e6, 2e6, 2.4e6, 5e6, 8e6, 10e6, 16e6, 20e6):
+        for multistage in (True, False):
+            builds = [TR.am_receiver(fs, 0.2 * fs, fir_mode="pallas", fold_shift=False, multistage=multistage)]
+            for variant in (TR.WBFM, TR.NBFM):
+                builds.append(TR.fm_receiver(fs, 0.2 * fs, variant, fir_mode="pallas", fold_shift=False,
+                                             use_fused=False, multistage=multistage))
+            for chain, _ in builds:
+                for tick in (RULE_TICK, 1 << 18):
+                    seen.update(_k4_stage_launches(chain, tick))
+    forms = set()
+    for (T, D, M), plan in seen:
+        smem = tfp.fir_decim_smem(T, D, plan)
+        assert smem == _k4_smem_c_side(T, D, plan) <= tfb.SMEM_LIMIT, (T, D, M, plan)
+        assert plan.chunk == T or plan.tile in (tfb.TILES[-1], tfp.OUTPUT_TILES[-1])
+        blocks = tfp.fir_decim_blocks(M, plan)
+        forms.add(plan.form)
+        if plan.form == "phase":
+            R, pitch = plan.tile // 32, tfb.phase_pitch(D)
+            assert plan.tile in tfp.PHASE_TILES and R % 2 == 1 and pitch % 2 == 1 and pitch >= D
+            assert len({(lane * R * pitch) % 16 for lane in range(16)}) == 16, (T, D, M, plan)
+            assert D >= tfb.KERNEL_WARPS and blocks >= tfb.PHASE_MIN_BLOCKS, (T, D, M, plan)
+        else:
+            tiles = tfp.OUTPUT_TILES if plan.form == "outputs" else tfp.TAP_TILES
+            assert plan.form == ("outputs" if D < tfb.KERNEL_WARPS else "taps") and plan.tile in tiles
+            if plan.chunk == T:  # no tile that fits stages fewer samples on its busiest SM
+                others = [plan._replace(tile=t) for t in tiles]
+                assert all(tfp.busiest_sm_samples(D, M, o) >= tfp.busiest_sm_samples(D, M, plan)
+                           for o in others if tfp.fir_decim_smem(T, D, o) <= tfb.SMEM_LIMIT), (T, D, M, plan)
+    assert forms == {"phase", "taps", "outputs"}
+
+
+@pytest.mark.parametrize(
+    "T,D,M,want,blocks",
+    [
+        (546, 50, 25_600, ("phase", 224), 115),  # the JSON graph's tick: the longest SM filters 224, not 2 x 160
+        (546, 50, 40_000, ("phase", 160), 250),  # two rounds of 224 against two blocks of 160 an SM
+        (546, 50, 19_200, ("phase", 160), 120),  # 86 blocks of 224 would leave a third of the SMs idle
+        (546, 50, 6_400, ("taps", 56), 115),
+        (868, 250, 5_120, ("taps", 40), 128),  # AM K4 runner, stage 1: 10,618 samples an SM, where 8 gave 5 x 2,618
+        (868, 250, 51_200, ("taps", 56), 915),
+        (46, 2, 2_560, ("outputs", 32), 80),  # AM K4 runner, stage 2: 10 blocks of 256 before
+        (46, 2, 640_000, ("outputs", 256), 2_500),
+        (6665, 500, 2_560, ("taps", 24), 107),  # single-stage AM: one block an SM
+        (728, 12, 87_380, ("phase", 224), 391),
+        (33, 4, 100, ("outputs", 32), 4),
+    ],
+)
+def test_fir_decim_plan_choices(T, D, M, want, blocks):
+    plan = tfp.fir_decim_plan(T, D, M)
+    assert (plan.form, plan.tile) == want and plan.chunk == T
+    assert tfp.fir_decim_blocks(M, plan) == blocks
+    assert tfp.fir_decim_smem(T, D, plan) == _k4_smem_c_side(T, D, plan) <= tfb.SMEM_LIMIT
+    if (T, D) == (546, 50):
+        five, seven = (plan._replace(form="phase", tile=t) for t in (160, 224))
+        assert tfp.fir_decim_smem(T, D, five) == 81_800 and tfp.fir_decim_smem(T, D, seven) == 112_008
+        assert tfb.blocks_per_sm(81_800) == tfb.blocks_per_sm(112_008) == 2
+
+
+def test_fir_decim_plan_chunks_long_taps():
+    """Where even the smallest tile does not fit with all the taps, the
+    taps go in chunks of a multiple of 32 that fit."""
+    for T, D, form in ((30000, 2, "outputs"), (60000, 9, "taps")):
+        plan = tfp.fir_decim_plan(T, D, 17_000)
+        assert plan.form == form and plan.chunk < T and plan.chunk % 32 == 0
+        assert tfp.fir_decim_smem(T, D, plan) <= tfb.SMEM_LIMIT < tfp.fir_decim_smem(T, D, plan._replace(chunk=plan.chunk + 32))
 
 
 # -- the card's shape rules (F1) ------------------------------------------------------
@@ -472,6 +604,39 @@ def test_phase_major_form_matches_plain(rng, T, D, complex_taps, s0):
 # -- FM-fused: the phase-major form and the second pointer ------------------------------
 
 
+def real_phase_sums(win, hq, T, D, R, warps=tfb.KERNEL_WARPS):
+    """The 32*R sums of one block of the phase-major form with real taps and
+    a phase's own tap count (csrc/fir_common.cuh, phase_sums and
+    add_phase_sums), in numpy, from its staged window and taps by phase.  A
+    phase p has Q taps if p < T - (Q-1)*D, else Q - 1; lane l slides its
+    register window down the phase R taps a group, the rest as a shorter
+    group; warp w takes phases w, w + warps, ..; the warps' partial sums are
+    added at the end."""
+    Q, pitch = hq.shape[1], tfb.phase_pitch(D)
+    full = T - (Q - 1) * D
+    lane = np.arange(32)
+    red = np.zeros((warps, R, 32), np.complex64)
+    for wp in range(warps):
+        acc = np.zeros((R, 32), np.complex64)
+        for p in range(wp, D, warps):
+            Qp = Q if p < full else Q - 1
+            at = lane * R * pitch + p
+            w = [win[at + j * pitch] for j in range(R - 1)] + [None] * R
+            at = at + (R - 1) * pitch
+            for q0 in range(0, Qp, R):
+                K = min(R, Qp - q0)
+                for j in range(K):
+                    w[R - 1 + j] = win[at + j * pitch]
+                for j in range(K):
+                    for r in range(R):
+                        acc[r] += hq[p, q0 + j] * w[j + r]
+                at = at + R * pitch
+                w[: R - 1] = w[R : 2 * R - 1]
+        red[wp] = acc
+    out = red.sum(0)
+    return np.array([out[j % R, j // R] for j in range(32 * R)])
+
+
 def fm_phase_major_form(hist, x, taps, D, inc, phase0, gain, M, R=tfm.PHASE_R, warps=tfb.KERNEL_WARPS):
     """The phase-major form of FM-fused with the kernel's own index
     arithmetic (csrc/fm_fused.cu, fm_fused_phase_kernel), in numpy.  Block b
@@ -479,9 +644,8 @@ def fm_phase_major_form(hist, x, taps, D, inc, phase0, gain, M, R=tfm.PHASE_R, w
     outputs from m0 on, so neighbours recompute one overlap sample.  Its
     window is 32*R + Q - 1 rows of D samples at an odd pitch, zero outside
     [0, end), end one past the last sample a tap reads, mixed in place with
-    the NCO phase of each sample's place in s = [hist, x].  A phase p has Q
-    taps if p < T - (Q-1)*D, else Q - 1; a lane slides its register window
-    down the phase R taps a group, the rest as a shorter group."""
+    the NCO phase of each sample's place in s = [hist, x]; its sums are
+    ``real_phase_sums``."""
     T = len(taps)
     s = np.concatenate([hist, x])
     nv, Q, pitch = 32 * R, -(-T // D), tfb.phase_pitch(D)
@@ -489,9 +653,7 @@ def fm_phase_major_form(hist, x, taps, D, inc, phase0, gain, M, R=tfm.PHASE_R, w
     end = min(len(s), (T - 1) + (M + 1) * D)
     u = np.arange(D)[:, None] + np.arange(Q)[None, :] * D
     hq = np.where(u < T, taps[::-1][np.minimum(u, T - 1)], 0).astype(np.float32)
-    full = T - (Q - 1) * D
     y = np.full(M, np.nan, np.float32)
-    lane = np.arange(32)
     for m0 in range(0, M, n_out):
         win = np.full(rows * pitch, np.nan + 0j, np.complex64)  # a word never staged must never be read
         i = np.arange(rows * D)
@@ -502,26 +664,7 @@ def fm_phase_major_form(hist, x, taps, D, inc, phase0, gain, M, R=tfm.PHASE_R, w
         ang = ph.astype(np.float32) * np.float32(2 * np.pi / 2**32)
         lo = (np.cos(ang) + 1j * np.sin(ang)).astype(np.complex64)
         win[i + (i // D) * (pitch - D)] = raw * lo
-        red = np.zeros((warps, R, 32), np.complex64)
-        for wp in range(warps):
-            acc = np.zeros((R, 32), np.complex64)
-            for p in range(wp, D, warps):
-                Qp = Q if p < full else Q - 1
-                at = lane * R * pitch + p
-                w = [win[at + j * pitch] for j in range(R - 1)] + [None] * R
-                at = at + (R - 1) * pitch
-                for q0 in range(0, Qp, R):
-                    K = min(R, Qp - q0)
-                    for j in range(K):
-                        w[R - 1 + j] = win[at + j * pitch]
-                    for j in range(K):
-                        for r in range(R):
-                            acc[r] += hq[p, q0 + j] * w[j + r]
-                    at = at + R * pitch
-                    w[: R - 1] = w[R : 2 * R - 1]
-            red[wp] = acc
-        out = red.sum(0)
-        v = np.array([out[j % R, j // R] for j in range(nv)])
+        v = real_phase_sums(win, hq, T, D, R, warps)
         for t in range(min(n_out, M - m0)):
             prod = v[t + 1] * np.conj(v[t])
             y[m0 + t] = gain * np.arctan2(prod.imag, prod.real)
@@ -566,6 +709,102 @@ def test_fused_fm_demod_history_is_a_second_pointer(rng, T, D, M, H):
     assert whole.shape == split.shape == (M,)
     assert torch.equal(whole, split)
     assert tfm.fused_fm_demod(z[: T - 1 + D], h, D, inc, ph, 0.8, history=z[:0]).shape == (0,)
+
+
+# -- K4: the forms of the new kernel -------------------------------------------------
+
+
+def k4_phase_major_form(hist, x, taps, D, M, R):
+    """K4's phase-major form with the kernel's own index arithmetic
+    (csrc/fir_poly.cu, fir_poly_phase), in numpy.  Block b owns the 32*R
+    outputs from m0 = b * 32R on; its window is 32*R + Q - 1 rows of D
+    samples of s = [hist, x] at an odd pitch, zero from end on, end one past
+    the last sample a tap reads; the reversed taps by phase, zero past T."""
+    T = len(taps)
+    s = np.concatenate([hist, x])
+    tile, Q, pitch = 32 * R, -(-T // D), tfb.phase_pitch(D)
+    rows = tile + Q - 1
+    end = min(len(s), (M - 1) * D + T)
+    u = np.arange(D)[:, None] + np.arange(Q)[None, :] * D
+    hq = np.where(u < T, taps[::-1][np.minimum(u, T - 1)], 0).astype(np.float32)
+    y = np.full(M, np.nan + 0j, np.complex64)
+    for m0 in range(0, M, tile):
+        win = np.full(rows * pitch, np.nan + 0j, np.complex64)  # a word never staged must never be read
+        i = np.arange(rows * D)
+        g = m0 * D + i
+        win[i + (i // D) * (pitch - D)] = np.where(g < end, s[np.minimum(g, len(s) - 1)], 0)
+        v = real_phase_sums(win, hq, T, D, R)
+        n = min(tile, M - m0)
+        y[m0 : m0 + n] = v[:n]
+    return y
+
+
+def k4_outputs_form(hist, x, taps, D, M, tile, chunk, threads=256):
+    """K4's lanes-across-outputs form (csrc/fir_poly.cu, fir_poly_outputs),
+    in numpy: block b owns the `tile` outputs from b * tile on; per chunk
+    of taps its window of (tile-1)*D + tc samples of s = [hist, x], zero
+    from end on; thread t owns output t % tile and takes the taps
+    t // tile, t // tile + threads / tile, ..; the groups' partial sums are
+    added in group order."""
+    T = len(taps)
+    s = np.concatenate([hist, x])
+    groups = threads // tile
+    end = min(len(s), (M - 1) * D + T)
+    y = np.full(M, np.nan + 0j, np.complex64)
+    o = np.arange(tile)
+    for m0 in range(0, M, tile):
+        acc = np.zeros((groups, tile), np.complex64)
+        for u0 in range(0, T, chunk):
+            tc = min(chunk, T - u0)
+            g = m0 * D + u0 + np.arange((tile - 1) * D + tc)
+            win = np.where(g < end, s[np.minimum(g, len(s) - 1)], 0).astype(np.complex64)
+            hr = taps[T - 1 - (u0 + np.arange(tc))]
+            for grp in range(groups):
+                for u in range(grp, tc, groups):
+                    acc[grp] += hr[u] * win[o * D + u]
+        out = acc[0]
+        for grp in range(1, groups):
+            out = out + acc[grp]
+        n = min(tile, M - m0)
+        y[m0 : m0 + n] = out[:n]
+    return y
+
+
+@pytest.mark.parametrize("H", ["tail", 0])
+@pytest.mark.parametrize("R", [5, 7])
+@pytest.mark.parametrize("T,D", [(546, 50), (100, 10), (9, 12), (132, 66), (101, 9)])
+def test_k4_phase_major_form_matches_plain(rng, T, D, R, H):
+    """Two whole blocks and a ragged third, the history through the second
+    pointer or none, x ending in D // 2 NaN samples past the last one a tap
+    reads (never staged), against ``fir_decim_plain`` within 1e-5 of peak;
+    T a multiple of D (every phase has Q taps), T < D (Q = 1: some phases
+    have none) and an odd D."""
+    M = 2 * 32 * R + 41
+    h = (rng.standard_normal(T) / np.sqrt(T)).astype(np.float32)
+    H = T - 1 if H == "tail" else 0
+    z = crandn(rng, (T - 1) + M * D + D // 2)
+    clean = z[: len(z) - D // 2]
+    z[len(clean) :] = np.nan
+    got = k4_phase_major_form(z[:H], z[H:], h, D, M, R)
+    ref = tfp.fir_decim_plain(torch.from_numpy(clean), torch.from_numpy(h), D, M).numpy()
+    assert np.isfinite(got).all()
+    close_to_peak(got, ref)
+
+
+@pytest.mark.parametrize("T,D,tile,chunk", [(46, 2, 32, 46), (46, 2, 256, 46), (33, 4, 64, 33), (300, 3, 128, 96),
+                                            (5, 7, 32, 5), (46, 2, 32, 20)])
+def test_k4_outputs_form_matches_plain(rng, T, D, tile, chunk):
+    """Ragged M, the streaming history, taps in chunks (a last short one),
+    T < D, and NaN past the last sample a tap reads."""
+    M = 2 * tile + 13
+    h = (rng.standard_normal(T) / np.sqrt(T)).astype(np.float32)
+    z = crandn(rng, (T - 1) + M * D + D // 2)
+    clean = z[: len(z) - D // 2]
+    z[len(clean) :] = np.nan
+    got = k4_outputs_form(z[: T - 1], z[T - 1 :], h, D, M, tile, chunk)
+    ref = tfp.fir_decim_plain(torch.from_numpy(clean), torch.from_numpy(h), D, M).numpy()
+    assert np.isfinite(got).all()
+    close_to_peak(got, ref)
 
 
 # -- dispatch -------------------------------------------------------------------------

@@ -229,6 +229,11 @@ def test_plan_probe_refuses_to_run_without_a_card(argv, monkeypatch):
         ("fm_fused", 9660, 666, 625, False, "taps", 8, {"blocks": 90, "smem": 153_280, "blocks_per_sm": 1, "is_rule_plan": True}),
         ("decim_fir", 546, 50, 25_600, True, "phase", 224, {"blocks": 115, "smem": 114_208, "is_rule_plan": True}),
         ("decim_fir", 868, 250, 5_120, True, "taps", 16, {"blocks": 320, "is_rule_plan": True}),
+        ("fir_decim", 546, 50, 25_600, False, "phase", 224, {"blocks": 115, "smem": 112_008, "is_rule_plan": True}),
+        ("fir_decim", 546, 50, 25_600, False, "phase", 160, {"blocks": 160, "smem": 81_800, "is_rule_plan": False}),
+        ("fir_decim", 868, 250, 5_120, False, "taps", 40, {"blocks": 128, "smem": 88_416, "is_rule_plan": True}),
+        ("fir_decim", 46, 2, 2_560, False, "outputs", 32, {"blocks": 80, "smem": 3_096, "is_rule_plan": True}),
+        ("fir_decim", 6665, 500, 2_560, False, "taps", 24, {"blocks": 107, "smem": 171_980, "is_rule_plan": True}),
     ],
 )
 def test_plan_probe_describes_a_plan_from_its_shape(kernel, T, D, M, cplx, form, tile, want):
@@ -238,7 +243,7 @@ def test_plan_probe_describes_a_plan_from_its_shape(kernel, T, D, M, cplx, form,
     assert {k: got[k] for k in want} == want
 
 
-@pytest.mark.parametrize("kernel,cplx", [("decim_fir", True), ("decim_fir", False), ("fm_fused", False)])
+@pytest.mark.parametrize("kernel,cplx", [("decim_fir", True), ("decim_fir", False), ("fm_fused", False), ("fir_decim", False)])
 def test_plan_probe_inputs_sit_in_the_passband(kernel, cplx):
     """The probe's value check is relative to the plain version's output:
     its tone must pass the filter (a filtered-out tone would leave a peak
@@ -264,6 +269,10 @@ def test_plan_probe_names_what_the_kernels_are_not_built_for():
     assert "built for tiles" in plan_probe.make_plan("fm_fused", 728, 66, False, "taps", 48, None)
     assert "built for tiles" in plan_probe.make_plan("decim_fir", 546, 50, True, "phase", 160, None)
     assert "built for tiles" in plan_probe.make_plan("fm_fused", 728, 66, False, "phase", 128, None)
+    assert "built for tiles" in plan_probe.make_plan("fir_decim", 868, 250, False, "taps", 12, None)
+    assert "built for tiles" in plan_probe.make_plan("fir_decim", 46, 2, False, "outputs", 16, None)
+    assert "has no outputs form" in plan_probe.make_plan("fm_fused", 728, 66, False, "outputs", 32, None)
+    assert "shared memory" in plan_probe.make_plan("fir_decim", 868, 250, False, "phase", 160, None)
     assert "shared memory" in plan_probe.make_plan("fm_fused", 9660, 666, False, "phase", 224, None)
     assert "shared memory" in plan_probe.make_plan("fm_fused", 9660, 666, False, "taps", 32, 9660)
     assert "--chunk" in plan_probe.make_plan("fm_fused", 60000, 666, False, "taps", 8, None)

@@ -1,10 +1,12 @@
-"""Time hand-picked plans of the two FIR kernels that have a shape rule.
+"""Time hand-picked plans of the three FIR kernels that have a shape rule.
 
-D-FIR (``kernels.fir_banded``, csrc/decim_fir.cu) and FM-fused
-(``kernels.fm_fused``, csrc/fm_fused.cu) each cut a launch by a plan: the
-inner loop (``taps``: lanes across taps; ``phase``: phase-major), the tile
-(outputs a block for D-FIR, filtered samples a block for FM-fused) and the
-tap chunk.  ``decim_fir_plan`` and ``fm_fused_plan`` pick one from
+D-FIR (``kernels.fir_banded``, csrc/decim_fir.cu), FM-fused
+(``kernels.fm_fused``, csrc/fm_fused.cu) and K4 (``kernels.fir_poly``,
+csrc/fir_poly.cu) each cut a launch by a plan: the inner loop (``taps``:
+lanes across taps; ``phase``: phase-major; K4 also ``outputs``: lanes
+across outputs), the tile (outputs a block,
+filtered samples a block for FM-fused) and the tap chunk.
+``decim_fir_plan``, ``fm_fused_plan`` and ``fir_decim_plan`` pick one from
 (T, D, M).  This probe launches any plan the kernels are built for through
 the C entry points, so that the rules' thresholds can be read again on the
 card:
@@ -20,9 +22,9 @@ card's name and power limit.  A pair the kernel is not built for, or whose
 block does not fit shared memory, prints a line with ``skipped``.
 
   * ``--M`` outputs, or ``--tick`` input samples (M = tick // D).  The
-    launch is the streaming one: a history of T-1 samples (D-FIR) or
+    launch is the streaming one: a history of T-1 samples (D-FIR, K4) or
     (T-1) + D (FM-fused) through the second pointer, then the tick.
-  * ``--complex-taps`` for D-FIR (FM-fused has real taps only).
+  * ``--complex-taps`` for D-FIR (FM-fused and K4 have real taps only).
   * ``--chunk`` taps a pass for the lanes-across-taps form (default: all
     T; where they do not fit beside the window, the line says so).
   * ``--input fixed`` launches on one tick again and again, so it is read
@@ -44,14 +46,18 @@ import sys
 import numpy as np
 import torch
 
-from tpusdr_torch.kernels import fir_banded, fm_fused
+from tpusdr_torch.kernels import fir_banded, fir_poly, fm_fused
 from tpusdr_torch.kernels.dispatch import check_launch
 from tpusdr_torch.ops import osc
 from tpusdr_torch.utils.numerics import cdiv
 from tpusdr_torch.utils.profiling import card_line, device_ms
 
-KERNELS = ("decim_fir", "fm_fused")
-PHASE_TILES = {"decim_fir": (fir_banded.PHASE_TILE,), "fm_fused": fm_fused.PROBE_PHASE_TILES}
+KERNELS = ("decim_fir", "fm_fused", "fir_decim")
+PHASE_TILES = {"decim_fir": (fir_banded.PHASE_TILE,), "fm_fused": fm_fused.PROBE_PHASE_TILES,
+               "fir_decim": fir_poly.PHASE_TILES}
+# tiles of the forms with a contiguous window, by kernel and form
+WINDOW_TILES = {("fir_decim", "taps"): fir_poly.TAP_TILES, ("fir_decim", "outputs"): fir_poly.OUTPUT_TILES}
+PLANS = {"decim_fir": fir_banded.DecimFirPlan, "fm_fused": fm_fused.FmFusedPlan, "fir_decim": fir_poly.FirDecimPlan}
 PARTS = ("all", "fill", "fill+mix")  # by their index on the C side
 L2_BYTES = 50 << 20  # an H100's L2 cache
 FS, F_OFF, GAIN = 2e6, 100e3, 0.32  # the probe's signal (a tone at +F_OFF) and FM gain
@@ -62,23 +68,28 @@ def rule_plan(kernel: str, T: int, D: int, M: int, complex_taps: bool):
     """The plan the kernel's own rule picks."""
     if kernel == "fm_fused":
         return fm_fused.fm_fused_plan(T, D, M)
+    if kernel == "fir_decim":
+        return fir_poly.fir_decim_plan(T, D, M)
     return fir_banded.decim_fir_plan(T, D, complex_taps, M)
 
 
 def make_plan(kernel: str, T: int, D: int, complex_taps: bool, form: str, tile: int, chunk: int | None):
     """The plan (form, tile, chunk) of ``kernel``, or a string that says why
     there is none.  ``chunk`` None: all T taps in one pass."""
-    cls = fm_fused.FmFusedPlan if kernel == "fm_fused" else fir_banded.DecimFirPlan
+    cls = PLANS[kernel]
     if form == "phase":
         if tile not in PHASE_TILES[kernel]:
             return f"the phase-major form is built for tiles {PHASE_TILES[kernel]}"
         if D < 2:
             return "the phase-major form needs D >= 2"
         plan = cls("phase", tile, T)
+    elif form == "taps" or (kernel, form) in WINDOW_TILES:
+        tiles = WINDOW_TILES.get((kernel, form), fir_banded.TILES)
+        if tile not in tiles:
+            return f"the {form} form is built for tiles {tiles}"
+        plan = cls(form, tile, T if chunk is None else chunk)
     else:
-        if tile not in fir_banded.TILES:
-            return f"the lanes-across-taps form is built for tiles {fir_banded.TILES}"
-        plan = cls("taps", tile, T if chunk is None else chunk)
+        return f"{kernel} has no {form} form"
     if not 1 <= plan.chunk <= T:
         return f"chunk {plan.chunk} is not within 1..{T}"
     smem = plan_smem(kernel, T, D, complex_taps, plan)
@@ -90,6 +101,8 @@ def make_plan(kernel: str, T: int, D: int, complex_taps: bool, form: str, tile: 
 def plan_smem(kernel: str, T: int, D: int, complex_taps: bool, plan) -> int:
     if kernel == "fm_fused":
         return fm_fused.fm_fused_smem(T, D, plan)
+    if kernel == "fir_decim":
+        return fir_poly.fir_decim_smem(T, D, plan)
     return fir_banded.decim_fir_smem(T, D, complex_taps, plan)
 
 
@@ -135,8 +148,8 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("plan_probe needs a CUDA device: a plan means nothing without the card")
-    if kernel == "fm_fused" and complex_taps:
-        raise ValueError("FM-fused takes real taps")
+    if kernel != "decim_fir" and complex_taps:
+        raise ValueError(f"{kernel} takes real taps")
     if kernel != "fm_fused" and part != "all":
         raise ValueError("--part is FM-fused's")
     lib = library()
@@ -154,6 +167,10 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
         out = torch.empty(M, dtype=torch.float32, device=device)
         ref = fm_fused.fused_fm_demod_plain(xs[0], taps, D, inc, ph0, GAIN, M, history=hists[0])
         tol = VALUE_TOL * GAIN
+    elif kernel == "fir_decim":
+        out = torch.empty(M, dtype=torch.complex64, device=device)
+        ref = fir_poly.fir_decim_plain(xs[0], taps, D, M, hists[0])
+        tol = VALUE_TOL * ref.abs().max().item()
     else:
         out = torch.empty(M, dtype=torch.complex64, device=device)
         ref = fir_banded.decim_fir_plain(hists[0], xs[0], taps, D, 0, M)
@@ -179,6 +196,9 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
                         err = lib.tpusdr_fm_fused(*head, *tail)
                     else:
                         err = lib.tpusdr_fm_fused_probe(*head, PARTS.index(part), *tail)
+                elif kernel == "fir_decim":
+                    head, tail = fir_poly.launch_args(lib, hists[k], xs[k], taps, D, M, plan, out)
+                    err = lib.tpusdr_fir_poly(*head, *tail)
                 else:
                     err = lib.tpusdr_decim_fir(
                         hists[k].data_ptr(), H, xs[k].data_ptr(), tick, taps.data_ptr(), T, int(complex_taps),
@@ -201,7 +221,7 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="time hand-picked plans of the D-FIR and FM-fused kernels")
+    ap = argparse.ArgumentParser(description="time hand-picked plans of the D-FIR, FM-fused and K4 kernels")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cuda:1'; 'cpu' is refused")
     ap.add_argument("--kernel", required=True, choices=KERNELS)
     ap.add_argument("--T", type=int, required=True, help="taps")
@@ -210,10 +230,12 @@ def main(argv=None) -> int:
     size.add_argument("--M", type=int, help="outputs of the launch")
     size.add_argument("--tick", type=int, help="input samples of the tick (M = tick // D)")
     ap.add_argument("--complex-taps", action="store_true", help="D-FIR with complex taps")
-    ap.add_argument("--form", nargs="+", default=["rule"], choices=("rule",) + fir_banded.FORMS,
+    ap.add_argument("--form", nargs="+", default=["rule"], choices=("rule",) + fir_poly.FORMS,
                     help="inner loops to time; 'rule' (default) times the rule's own plan")
     ap.add_argument("--tile", type=int, nargs="+", default=[],
-                    help="tiles to time with each form (taps: 64 32 16 8; phase: 224, and 160 for fm_fused)")
+                    help="tiles to time with each form (taps: 64 32 16 8, for fir_decim any multiple of 8 "
+                         "up to 64; phase: 224, and 160 for fm_fused and fir_decim; fir_decim's outputs: "
+                         "256 128 64 32)")
     ap.add_argument("--chunk", type=int, default=None, help="taps a pass (default: all that fit)")
     ap.add_argument("--input", default="fixed", choices=("fixed", "rotate"))
     ap.add_argument("--part", default="all", choices=PARTS, help="FM-fused: cut the launch after a part")

@@ -301,12 +301,15 @@ class Fir(Block):
         )
 
     def _apply_pallas(self, state, x):
+        """K4 over [state, x] through two pointers: nothing is copied in
+        front of the launch, and the carry is the tail of the tick (of the
+        small ``cat`` where the tick is shorter than the history)."""
         if not self._pallas_eligible(x):
             return fir.fir_apply(state, x, self.taps, self.decimation, "poly")
-        ext = torch.cat([state, x])
-        y = fir_decim(ext, self.taps, self.decimation)
-        T = self.taps.shape[-1]
-        return ext[ext.shape[-1] - (T - 1) :].clone(), y
+        y = fir_decim(x, self.taps, self.decimation, history=state)
+        H, n = self.taps.shape[-1] - 1, x.shape[-1]
+        tail = x[n - H :] if n >= H else torch.cat([state, x])[-H:]
+        return tail.clone(), y
 
 
 @register_block("FreqShiftFir")

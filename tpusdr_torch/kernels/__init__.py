@@ -4,8 +4,8 @@
     the TPU kernels ``banded_fir_pallas`` and ``banded_fir_prelude``;
   * ``fm_fused``: NCO mix -> FIR -> FM discriminator (csrc/fm_fused.cu),
     replacing ``fused_fm_demod_pallas``;
-  * ``fir_poly``: polyphase decimating FIR, complex data x real taps
-    (csrc/fir_poly.cu), replacing ``fir_decim_pallas``;
+  * ``fir_poly``: polyphase decimating FIR of [history, x], complex data x
+    real taps (csrc/fir_poly.cu), replacing ``fir_decim_pallas``;
   * ``copy_floor``: a tick pulled whole through shared memory by
     asynchronous copies (csrc/copy_floor.cu), replacing the kernel of
     ``dma_once`` in benchmarks/kernel_floor_probe.py;

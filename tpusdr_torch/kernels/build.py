@@ -95,9 +95,9 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_fm_fused_probe.restype = i
         lib.tpusdr_fm_fused_smem.argtypes = [i, i, i, i, i]
         lib.tpusdr_fm_fused_smem.restype = i64
-        lib.tpusdr_fir_poly.argtypes = [p, p, i, i, i64, i, p, i, p]
+        lib.tpusdr_fir_poly.argtypes = [p, i64, p, i64, p, i, i, i64, i, i, i, p, i, p]
         lib.tpusdr_fir_poly.restype = i
-        lib.tpusdr_fir_poly_smem.argtypes = [i]
+        lib.tpusdr_fir_poly_smem.argtypes = [i, i, i, i, i]
         lib.tpusdr_fir_poly_smem.restype = i64
         lib.tpusdr_copy_floor.argtypes = [p, i64, i, i, i, i, p, i, p]
         lib.tpusdr_copy_floor.restype = i

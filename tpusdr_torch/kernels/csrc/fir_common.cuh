@@ -1,6 +1,7 @@
-// What the FIR kernels share (decim_fir.cu, fm_fused.cu): the block size,
-// the staging of a window of s = [hist, x] into shared memory by
-// asynchronous copies, and the phase-major inner loop's building blocks.
+// What the FIR kernels share (decim_fir.cu, fm_fused.cu, fir_poly.cu): the
+// block size, the staging of a window of s = [hist, x] into shared memory
+// by asynchronous copies, the phase-major inner loop's building blocks, and
+// that loop with real taps and a phase's own tap count (FM-fused and K4).
 
 #pragma once
 
@@ -133,5 +134,103 @@ struct PhaseRest<R, 0, Tap> {
   static __device__ __forceinline__ void run(int, float2 (&)[R], float2 (&)[2 * R - 1],
                                              const Tap*, const float2*, int) {}
 };
+
+// ---- the phase-major form with real taps (fm_fused.cu, fir_poly.cu) ----------
+//
+// A block owns 32 R consecutive sums.  Its window is tile + Q - 1 rows of D
+// samples at the odd pitch D | 1 (Q = ceil(T/D)), then the warps' partial
+// sums [warps][R][32], then the reversed taps by phase, hq[p][q] =
+// h_rev[p + q*D], zero past T.
+
+// Shared memory of one such block of `tile` = 32 R sums, in bytes.
+inline int64_t phase_block_bytes(int T, int D, int tile) {
+  const int Q = (T + D - 1) / D;
+  const int64_t rows = tile + Q - 1;
+  const int64_t pitch = D | 1;
+  return (rows * pitch + static_cast<int64_t>(kWarps) * tile) * sizeof(float2) +
+         static_cast<int64_t>(D) * Q * sizeof(float);
+}
+
+// Stage the n = rows * D samples of st's range, sample i at row i / D,
+// column i % D of the window.
+__device__ __forceinline__ void stage_rows(const Staging& st, float2* win, int n, int D,
+                                           int pitch, uint32_t magic) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    stage(st, win, i + static_cast<int>(__umulhi(i, magic)) * (pitch - D), i);
+}
+
+// Stage the reversed taps by phase, hq[p][q] = h_rev[p + q*D], zero past T.
+__device__ __forceinline__ void stage_phase_taps(float* hq, const float* taps, int T, int D, int Q,
+                                                 uint32_t magic) {
+  for (int u = threadIdx.x; u < Q * D; u += kThreads) {
+    const int q = static_cast<int>(__umulhi(u, magic));
+    float* dst = hq + (u - q * D) * Q + q;
+    if (u < T) {
+      stage_tap(dst, taps + (T - 1 - u));
+    } else {
+      *dst = 0.f;
+    }
+  }
+}
+
+// The lane's partial sums: lane l of warp w owns sums l*R .. l*R+R-1 of the
+// block and takes the phases w, w + 8, ..; sum r of the lane needs rows
+// l*R + r + q of each phase.  Phases below `full` = T - (Q-1)*D have Q
+// taps, the rest Q - 1.  Down a phase the lane slides a register window of
+// 2R-1 samples over groups of R taps: R broadcast tap loads and R sample
+// loads feed R*R MACs; the last Qp % R taps go as one shorter group.
+template <int R>
+__device__ __forceinline__ void phase_sums(float2 (&acc)[R], const float2* win, const float* hq,
+                                           int T, int D, int Q, int pitch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
+  const float2* lane_rows = win + lane * R * pitch;
+  const int full = T - (Q - 1) * D;
+  for (int p = warp; p < D; p += kWarps) {
+    const int Qp = p < full ? Q : Q - 1;
+    const int groups = Qp / R;
+    const int rest = Qp - groups * R;
+    const float2* sp = lane_rows + p;
+    const float* hp = hq + p * Q;
+    float2 w[2 * R - 1];
+#pragma unroll
+    for (int j = 0; j < R - 1; ++j) w[j] = sp[j * pitch];
+    sp += (R - 1) * pitch;
+    for (int g = 0; g < groups; ++g) {
+      phase_group<R, R>(acc, w, hp, sp, pitch);
+      hp += R;
+      sp += R * pitch;
+#pragma unroll
+      for (int j = 0; j < R - 1; ++j) w[j] = w[R + j];
+    }
+    PhaseRest<R, R - 1, float>::run(rest, acc, w, hp, sp, pitch);
+  }
+}
+
+// Add the warps' partial sums through red; store(j, sum) takes sum j of the
+// block, from thread j % 256.  Every warp is past its last read of the
+// window when store runs.
+template <int R, typename Store>
+__device__ __forceinline__ void add_phase_sums(const float2 (&acc)[R], float2* red, Store store) {
+  constexpr int kTile = kPhaseLanes * R;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) red[(warp * R + r) * kPhaseLanes + lane] = acc[r];
+  __syncthreads();
+  for (int j = threadIdx.x; j < kTile; j += kThreads) {
+    const int at = (j % R) * kPhaseLanes + j / R;
+    float2 sum = red[at];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float2 part = red[w * kTile + at];
+      sum.x += part.x;
+      sum.y += part.y;
+    }
+    store(j, sum);
+  }
+}
 
 }  // namespace tpusdr_fir

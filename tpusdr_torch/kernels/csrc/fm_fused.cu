@@ -52,7 +52,8 @@
 // memory, window rows of D samples at an odd pitch.  Real taps here, and a
 // phase's own tap count: with Q = ceil(T/D) only the phases p < T - (Q-1)*D
 // have a Q-th tap, the rest stop at Q - 1 (at (728, /66) 2 phases of 66
-// have the twelfth).  The sums land where the window was; the
+// have the twelfth).  The loop is fir_common.cuh's phase_sums, shared with
+// K4 (fir_poly.cu).  The sums land where the window was; the
 // discriminator reads them there.  R = 5 is the rule's: a block of 160
 // filtered samples is 105 KB, the NBFM tick of 20,000 outputs is 126 blocks
 // on 132 SMs, and a launch takes as long as its longest block (9.5 us
@@ -240,22 +241,12 @@ cudaError_t launch_taps(const Args& a, int chunk, int64_t smem, cudaStream_t str
 
 // ---- form 1: phase-major ----------------------------------------------------
 
-int64_t phase_smem_bytes(int T, int D, int nv) {
-  const int Q = (T + D - 1) / D;
-  const int64_t rows = nv + Q - 1;
-  const int64_t pitch = D | 1;
-  return (rows * pitch + static_cast<int64_t>(kWarps) * nv) * sizeof(float2) +
-         static_cast<int64_t>(D) * Q * sizeof(float);
-}
-
 template <int R, int kPart>
 __global__ void __launch_bounds__(kThreads)
     fm_fused_phase_kernel(const Args a, int Q, uint32_t magic) {
   constexpr int kV = kPhaseLanes * R;  // filtered samples per block
   constexpr int kOut = kV - 1;         // discriminator outputs per block
   const int T = a.T, D = a.D;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
   const int rows = kV + Q - 1;
   const int pitch = D | 1;  // odd, so that a lane stride of R * pitch is too
   extern __shared__ float2 smem[];
@@ -266,18 +257,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kOut;
   const int64_t base = m0 * D;
   const Staging st = staging(win, rows * D, a.hist, a.H, a.x, base, read_end(a));
-  for (int i = threadIdx.x; i < rows * D; i += kThreads)
-    stage(st, win, i + static_cast<int>(__umulhi(i, magic)) * (pitch - D), i);
-  // The reversed taps by phase, hq[p][q] = h_rev[p + q*D], zero past T.
-  for (int u = threadIdx.x; u < Q * D; u += kThreads) {
-    const int q = static_cast<int>(__umulhi(u, magic));
-    float* dst = hq + (u - q * D) * Q + q;
-    if (u < T) {
-      stage_tap(dst, a.taps + (T - 1 - u));
-    } else {
-      *dst = 0.f;
-    }
-  }
+  stage_rows(st, win, rows * D, D, pitch, magic);
+  stage_phase_taps(hq, a.taps, T, D, Q, magic);
   commit_copies();
   wait_copies(0);
   if constexpr (kPart != kPartFill) {
@@ -290,50 +271,11 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  // Lane l owns filtered samples l*R .. l*R+R-1 of the block; sample r of a
-  // lane needs rows l*R + r + q of each phase.  Phases below `full` have Q
-  // taps, the rest Q - 1.
+  // The phase-major sums (fir_common.cuh); filtered sample j lands where
+  // the window was.
   float2 acc[R];
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
-  const float2* lane_rows = win + lane * R * pitch;
-  const int full = T - (Q - 1) * D;
-  for (int p = warp; p < D; p += kWarps) {
-    const int Qp = p < full ? Q : Q - 1;
-    const int groups = Qp / R;
-    const int rest = Qp - groups * R;
-    const float2* sp = lane_rows + p;
-    const float* hp = hq + p * Q;
-    float2 w[2 * R - 1];
-#pragma unroll
-    for (int j = 0; j < R - 1; ++j) w[j] = sp[j * pitch];
-    sp += (R - 1) * pitch;
-    for (int g = 0; g < groups; ++g) {
-      phase_group<R, R>(acc, w, hp, sp, pitch);
-      hp += R;
-      sp += R * pitch;
-#pragma unroll
-      for (int j = 0; j < R - 1; ++j) w[j] = w[R + j];
-    }
-    PhaseRest<R, R - 1, float>::run(rest, acc, w, hp, sp, pitch);
-  }
-
-  // Add the warps' partial sums; thread j leaves filtered sample j where the
-  // window was (every warp is past its last read of it).
-#pragma unroll
-  for (int r = 0; r < R; ++r) red[(warp * R + r) * kPhaseLanes + lane] = acc[r];
-  __syncthreads();
-  for (int j = threadIdx.x; j < kV; j += kThreads) {
-    const int at = (j % R) * kPhaseLanes + j / R;
-    float2 sum = red[at];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      const float2 part = red[w * kV + at];
-      sum.x += part.x;
-      sum.y += part.y;
-    }
-    win[j] = sum;
-  }
+  phase_sums<R>(acc, win, hq, T, D, Q, pitch);
+  add_phase_sums<R>(acc, red, [=](int j, float2 sum) { win[j] = sum; });
   __syncthreads();
   discriminate(win, kOut, m0, a);
 }
@@ -356,7 +298,7 @@ cudaError_t launch_phase(const Args& a, int64_t smem, cudaStream_t stream) {
 // ---- both forms ---------------------------------------------------------------
 
 int64_t smem_bytes(int T, int D, int form, int nv, int chunk) {
-  return form == 1 ? phase_smem_bytes(T, D, nv) : taps_smem_bytes(D, nv, chunk);
+  return form == 1 ? phase_block_bytes(T, D, nv) : taps_smem_bytes(D, nv, chunk);
 }
 
 template <int kPart>

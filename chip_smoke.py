@@ -15,8 +15,12 @@ Phases (each prints lines; any failure exits non-zero):
      (546, /50), each through the streaming call (the carried T-1 samples
      through the second pointer) with the plan its rule picks, timed on a
      fixed tick and on ticks that rotate past the L2 cache; the copy floor K5 at ticks of 1,280,000 and 2,048,000
-     samples, n_split 1 and the best of 2/5/10, on ticks that rotate past
-     the L2 cache; the staging probes K6-K8 at the probes' shapes on random
+     samples, n_split 1 and the best of 2/5/10, with the plan
+     ``copy_floor_plan`` picks (checked: one block on every SM, resident,
+     each block's span in flight at once), on ticks that rotate
+     past the L2 cache and on one fixed tick, beside a read yardstick
+     (``torch.sum`` over the same rotating ticks viewed as float32); the
+     staging probes K6-K8 at the probes' shapes on random
      data.  Each row also gets its bound (bytes over 3.35 TB/s or
      operations over 67 TFLOP/s, whichever is longer) and, where one
      PyTorch call computes the same function (``conv1d`` for the FIR
@@ -57,7 +61,9 @@ Phases (each prints lines; any failure exits non-zero):
   8. the digital-voice app ``tpusdr_torch.apps.digital`` on its synthetic
      source (1 Msps, 8 ticks of 1,048,560 samples): the 500 Hz line must
      dominate the audio, which must match the CPU run;
-  9. a JSON line of the kernels, the card line, and the result line.
+  9. every phase 2 row's bound at K5's best rate in this run (the floor
+     probe's ceiling) beside its bound at peak, a JSON line of the kernels,
+     the card line, and the result line.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after; every kernel the path goes through must have launched.
@@ -241,7 +247,7 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
     """Phase 2: every kernel against its plain version."""
     from tpusdr_torch.benchmarks import plan_probe
     from tpusdr_torch.graph.blocks import FusedFmDemod
-    from tpusdr_torch.kernels import copy_floor, fir_banded, fir_poly, fm_fused, staging_probes
+    from tpusdr_torch.kernels import build, copy_floor, fir_banded, fir_poly, fm_fused, staging_probes
     from tpusdr_torch.models import receiver
     from tpusdr_torch.ops import osc
     from tpusdr_torch.utils.profiling import H100_PEAK_GBPS, device_ms
@@ -432,8 +438,12 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
 
     # K5: the copy floor at both ticks; the timed calls rotate through
     # ticks that together exceed the L2 cache, so every byte comes from
-    # device memory and a rate above the card's peak means dropped loads
-    Gc = 6400
+    # device memory and a rate above the card's peak means dropped loads.
+    # Beside each row: its time on one fixed tick (from the L2) and the read
+    # yardstick, torch.sum over the same rotating ticks viewed as float32
+    # (one call that reads the same bytes once; the port never calls it)
+    Gc, sms = 6400, copy_floor.sm_count(dev.index)
+    resident = build.library().tpusdr_copy_floor_resident
     for tick in (TICK, 2_048_000):
         rows = tick // Gc
         ticks = [crandn(rows, Gc) for _ in range(8)]
@@ -441,6 +451,18 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
         quick = {ns: device_ms(lambda ns=ns: copy_floor.copy_floor(next(turn), ns)) for ns in (2, 5, 10)}
         best = min(quick, key=quick.get)
         for ns in (1, best):
+            plan = copy_floor.copy_floor_plan(rows, Gc, ns, sms)
+            smem = copy_floor.copy_floor_smem(plan)
+            per_sm = resident(smem, dev.index)
+            print(f"phase 2 K5 plan at ({rows}, {Gc}) n_split={ns}: {plan}, {smem} B a block, "
+                  f"{per_sm} blocks of it resident an SM", flush=True)
+            unit, n_bytes = copy_floor.ALIGN * ns, rows * Gc * 8
+            longest = -(-(n_bytes // unit) // plan.blocks) * unit + n_bytes % unit  # the longest span
+            check(plan.per_sm == copy_floor.PER_SM <= per_sm and plan.blocks == sms * plan.per_sm
+                  and plan.unit == unit and plan.piece <= copy_floor.PIECE_BYTES
+                  and plan.stages * plan.piece >= longest,
+                  f"K5 ({rows}, {Gc}): {copy_floor.PER_SM} block on every SM, spans in 128-byte units, "
+                  f"each span in flight at once: {plan}")
             r = compare(
                 torch, card, f"K5 copy_floor tick={tick} n_split={ns}",
                 lambda ns=ns: copy_floor.copy_floor(ticks[0], ns),
@@ -451,10 +473,15 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
                 exact=True,
                 library_fn=lambda: ticks[0][:, : copy_floor.OUT_COLS].contiguous(), library_view=lambda y: y,
             )
-            r["n_split"], r["gbps_in"] = ns, tick * 8 / (r["ms"] * 1e6)
+            r["n_split"], r["plan"], r["gbps_in"] = ns, plan._asdict(), tick * 8 / (r["ms"] * 1e6)
             r["gbps_moved"] = copy_floor.moved_bytes(rows, Gc) / (r["ms"] * 1e6)
-            print(f"phase 2 K5 tick={tick} n_split={ns}: {r['gbps_in']:.1f} GB/s in, "
-                  f"{r['gbps_moved']:.1f} GB/s moved (peak {H100_PEAK_GBPS:.0f})", flush=True)
+            r["fixed_tick_ms"] = device_ms(lambda ns=ns, plan=plan: copy_floor.launch(ticks[0], ns, plan))
+            r["read_yardstick_ms"] = device_ms(lambda: next(turn).view(torch.float32).sum())
+            print(f"phase 2 K5 tick={tick} n_split={ns}: {r['ms'] * 1e3:.2f} us from device memory "
+                  f"({r['gbps_in']:.1f} GB/s in, {r['gbps_moved']:.1f} GB/s moved, peak {H100_PEAK_GBPS:.0f}), "
+                  f"{r['fixed_tick_ms'] * 1e3:.2f} us on one fixed tick; read yardstick (torch.sum, rotating) "
+                  f"{r['read_yardstick_ms'] * 1e3:.2f} us; slice {r['library_ms'] * 1e3:.2f} us; "
+                  f"bound {r['bound_ms'] * 1e3:.2f} us", flush=True)
             check(r["gbps_moved"] <= H100_PEAK_GBPS,
                   f"K5 tick={tick} n_split={ns}: {r['gbps_moved']:.0f} GB/s is over the card's peak: loads were dropped")
             cmp[f"k5_{tick}_{'1' if ns == 1 else 'best'}"] = r
@@ -1074,6 +1101,15 @@ def main() -> int:
     ]
     for row in kern:
         check(row["launches"] > 0, f"{row['name']}: not launched on its main path")
+    # every phase 2 row's bound at K5's best rate in this run (the floor
+    # probe's ceiling at the 1,280,000-sample tick) beside its bound at peak
+    k5_gbps = max(line["dma_gbps"] for line in main_runs["floor_probe"] if "dma_gbps" in line and line["ok"])
+    report["bounds_at_k5_rate"] = {
+        key: {"kernel_us": r["ms"] * 1e3, "bound_peak_us": r["bound_ms"] * 1e3,
+              "bound_k5_us": r["bytes"] / (k5_gbps * 1e3), "bound_by": r["bound_by"]}
+        for key, r in cmp.items()
+    }
+    print(f"phase 9 bounds at K5's rate ({k5_gbps:.1f} GB/s in): " + json.dumps(report["bounds_at_k5_rate"]), flush=True)
     report.update(kernels=kern, compare=cmp, main=main_runs)
     (OUT_DIR / "chip_smoke_last.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kern}), flush=True)

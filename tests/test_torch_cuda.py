@@ -377,21 +377,46 @@ def test_mixed_devices_raise(cuda):
 # -- K5-K8: the copy floor and the staging probes ----------------------------------------
 
 
+def head_cuts(n_rows, G, n_split, plan):
+    """(span, piece) boundaries of a K5 launch that fall inside a row head,
+    [r*G*8, r*G*8 + 1024), from the kernel's span and piece arithmetic."""
+    unit, row = plan.unit, G * 8
+    q, extra = divmod(n_rows * row // unit, plan.blocks)
+    spans = [(b * q + min(b, extra)) * unit for b in range(plan.blocks)] + [n_rows * row]
+    pieces = [a for b, e in zip(spans, spans[1:]) for a in range(b + plan.piece, e, plan.piece)]
+    inside = lambda cuts: sum(0 < a % row < 1024 for a in cuts)  # noqa: E731
+    return inside(spans), inside(pieces)
+
+
 @pytest.mark.parametrize(
-    "n_rows,G,n_split",
+    "n_rows,G,n_split,cuts",
     [
-        (200, 6400, 1),  # the probe shape at a 1,280,000-sample tick
-        (320, 6400, 10),  # the JAX probe's tick
-        (200, 6400, 5),
-        (50, 512, 4),  # 12 rows a chunk: the last chunk holds 2 rows
-        (1, 128, 1),
-        (133, 128, 2),  # more chunks than resident blocks take in one turn
-        (30, 12800, 10),  # a 102,400-byte row: a ring of two stages
+        (200, 6400, 1, None),  # the probe shape at a 1,280,000-sample tick
+        (320, 6400, 10, None),  # the JAX probe's tick
+        (200, 6400, 5, None),
+        (50, 512, 4, None),  # a row is 4 KB: many rows a piece
+        (1, 128, 1, None),  # 64 units of 16 B: 64 blocks of one unit, fewer than the SMs take
+        (133, 128, 2, None),  # every byte is a row head
+        (30, 12800, 10, None),  # a 102,400-byte row
+        (320, 6400, 1, "span+piece"),  # row heads cut by a span and by a piece boundary
+        (7, 6400, 1, "span"),  # spans of about 1,360 B: heads cut by span boundaries
+        (4, 20000, 1, None),  # a 160,000-byte row: refused while a stage held whole rows
+        (50, 20000, 10, None),
+        (2000, 6400, 1, None),  # a 12,800,000-sample tick: each span longer than its ring
+        (2000, 6400, 10, None),
+        (1, 128, 2, None),
+        (133, 128, 1, None),
     ],
 )
-def test_copy_floor_k5(cuda, rng, n_rows, G, n_split):
+def test_copy_floor_k5(cuda, rng, n_rows, G, n_split, cuts):
     """Random data: a block that read its stage before the copy landed
-    would pass on ones and fail here."""
+    would pass on ones and fail here.  Every case has spans whose last
+    piece is short; in (320, 6400, 1) and (7, 6400, 1) the tick's bytes are
+    not a multiple of the piece either."""
+    plan =tcf.copy_floor_plan(n_rows, G, n_split, tcf.sm_count(0))
+    spans, pieces = head_cuts(n_rows, G, n_split, plan)
+    if cuts is not None:
+        assert spans > 0 and (pieces > 0) == ("piece" in cuts)
     x = crandn(rng, cuda, n_rows, G)
     before = tcf.copy_floor.launches
     got = tcf.copy_floor(x, n_split)
@@ -405,11 +430,17 @@ def test_copy_floor_refuses_a_split_that_does_not_divide(cuda, rng):
     before = tcf.copy_floor.launches
     with pytest.raises(ValueError, match="n_split=3"):
         tcf.copy_floor(x, 3)
-    with pytest.raises(ValueError, match="two stages"):
-        tcf.copy_floor(crandn(rng, cuda, 2, 20000))
+    with pytest.raises(ValueError, match="does not fit"):
+        tcf.copy_floor(crandn(rng, cuda, 2, 40000), 20000)  # a piece of 20,000 copies of 16 B
     assert tcf.copy_floor.launches == before
-    lib_smem = __import__("tpusdr_torch.kernels.build", fromlist=["library"]).library().tpusdr_copy_floor_smem
-    assert lib_smem(6400, 1, 4) == 4 * 51200 + 32 <= tcf.SMEM_LIMIT
+    lib = __import__("tpusdr_torch.kernels.build", fromlist=["library"]).library()
+    plan = tcf.copy_floor_plan(200, 6400, 1, tcf.sm_count(0))
+    smem = tcf.copy_floor_smem(plan)
+    assert lib.tpusdr_copy_floor_smem(plan.piece, plan.stages) == smem == 77696 + 8
+    assert plan.unit == 128
+    assert lib.tpusdr_copy_floor_resident(smem, 0) >= plan.per_sm == 1
+    plan = tcf.copy_floor_plan(2000, 6400, 1, tcf.sm_count(0))  # a ring of two 97,024-byte pieces
+    assert lib.tpusdr_copy_floor_resident(tcf.copy_floor_smem(plan), 0) >= plan.per_sm and plan.stages == 2
 
 
 @pytest.mark.parametrize("rows,W,B,P", [(4096, 128, 1024, 11), (777, 36, 100, 11), (33, 4, 32, 3), (5, 8, 1, 1)])

@@ -124,7 +124,7 @@ def test_probe_wrappers_take_the_plain_version_on_the_cpu_without_launching(rng)
         ((4, 6400), np.complex64, 0, "n_split=0"),
         ((4, 6400), np.complex64, 6400, "n_split=6400"),  # pieces of 8 bytes
         ((4, 64), np.complex64, 1, "shorter than the 128"),
-        ((4, 20000), np.complex64, 1, "two stages"),  # a 160,000-byte row
+        ((4, 40000), np.complex64, 20000, "does not fit"),  # 20,000 copies of 16 B: a 320,000-byte piece
         ((4, 6400), np.float32, 1, "2-D complex64"),
         ((6400,), np.complex64, 1, "2-D complex64"),
     ],
@@ -134,13 +134,125 @@ def test_copy_floor_refuses_what_the_copy_cannot_take(shape, dtype, n_split, mat
         cf.copy_floor(torch.zeros(shape, dtype=torch.from_numpy(np.zeros(1, dtype)).dtype), n_split)
 
 
+def test_copy_floor_refuses_a_tick_of_4_gb():
+    """The kernel's byte offsets are 32-bit: a tick of 2^32 bytes is refused
+    (a broadcast view, so nothing is allocated)."""
+    x = torch.zeros(1, 1, dtype=torch.complex64).expand(1 << 16, 1 << 13)
+    with pytest.raises(ValueError, match="offsets"):
+        cf.copy_floor(x)
+    assert cf.copy_floor(x[: (1 << 16) - 1]).shape == ((1 << 16) - 1, 128)
+
+
 def test_copy_floor_plan_fits_shared_memory():
-    assert cf.copy_floor_plan(6400) == (1, 4)  # one 51,200-byte row a chunk, four stages
-    rows, stages = cf.copy_floor_plan(512, 4)
-    assert rows == 12 and stages == 4 and rows * 512 * 8 <= cf.CHUNK_BYTES
-    assert cf.copy_floor_plan(12800, 10) == (1, 2)  # a 102,400-byte row: two stages fit
-    with pytest.raises(ValueError, match="two stages"):
-        cf.copy_floor_plan(20000)  # a 160,000-byte row: not even two stages fit
+    """One block an SM, spans in units of 128 * n_split bytes, the longest
+    cut into the fewest equal pieces of at most 96 KB, as many stages as
+    it has pieces up to what fits."""
+    assert cf.copy_floor_plan(200, 6400) == (1, 77696, 1, 132, 128)  # spans of 77,568-77,696 B: one piece
+    assert cf.copy_floor_plan(320, 6400, 10) == (1, 62720, 2, 132, 1280)  # 124,160 B and the tail: two
+    assert cf.copy_floor_plan(2000, 6400) == (1, 97024, 2, 132, 128)  # spans of 775,757 B: eight, a ring of two
+    assert cf.copy_floor_plan(2000, 6400, sms=114) == (1, 89856, 2, 114, 128)
+    assert cf.copy_floor_plan(200, 6400, per_sm=2, piece=16384) == (2, 13056, 3, 264, 128)
+    assert cf.copy_floor_plan(1, 128) == (1, 128, 1, 8, 128)  # 8 units of 128 B: one block each
+    assert cf.copy_floor_plan(1, 128, 64) == (1, 8192, 1, 1, 8192)  # a unit longer than the tick: one block
+    assert cf.copy_floor_plan(4, 20000) == (1, 4864, 1, 132, 128)  # a 160,000-byte row is taken
+    assert cf.copy_floor_plan(4, 20000, 10000) == (1, 160000, 1, 4, 160000)  # units of 16 * n_split
+    for n_rows, G, n_split in [(200, 6400, 1), (2000, 6400, 10), (4, 20000, 10000), (50, 512, 4)]:
+        for per_sm, piece in [(2, 16384), (1, 32768), (2, 8192), (3, 4096)]:
+            plan = cf.copy_floor_plan(n_rows, G, n_split, per_sm=per_sm, piece=piece)
+            assert plan.per_sm * cf.copy_floor_smem(plan) <= cf.SMEM_LIMIT and plan.stages >= 1
+    got = cf.copy_floor(torch.from_numpy(crandn(np.random.default_rng(5), 4, 20000)))
+    assert got.shape == (4, 128)
+
+
+def k5_model(n_rows, G, n_split, plan):
+    """The span, ring and row-head arithmetic of csrc/copy_floor.cu, block
+    by block: returns each block's (begin, end, [(a, len, parts), ...])
+    and every 16-byte output write as (output vector, input byte offset).
+    The ring is walked as the kernel walks it: thread 0 issues pieces 0 ..
+    stages-1, piece i waits on barrier i % stages for parity
+    (i // stages) & 1, and the stage is refilled with piece i + stages
+    after that wait."""
+    unit, row, n_bytes = plan.unit, G * 8, n_rows * G * 8
+    per_block, extra = divmod(n_bytes // unit, plan.blocks)
+    blocks, writes = [], []
+    for b in range(plan.blocks):
+        begin = (b * per_block + min(b, extra)) * unit
+        span = (per_block + (b < extra)) * unit + (n_bytes % unit if b + 1 == plan.blocks else 0)
+        n_pieces = -(-span // plan.piece)
+        holds = [None] * plan.stages  # the piece each stage was last filled with
+        done = [0] * plan.stages  # phases each barrier has completed
+        for i in range(min(plan.stages, n_pieces)):
+            holds[i] = i
+        pieces = []
+        for i in range(n_pieces):
+            s = i % plan.stages
+            assert holds[s] == i and (i // plan.stages) & 1 == done[s] & 1  # the wait returns on piece i's phase
+            done[s] += 1
+            a = begin + i * plan.piece
+            ln = min(plan.piece, begin + span - a)
+            pieces.append((a, ln, [ln // n_split] * n_split))
+            r0 = a // row
+            if a - r0 * row < 1024 or (r0 + 1) * row < a + ln:
+                v = np.arange(((a + ln - 1) // row - r0 + 1) * 64)
+                r, q = r0 + v // 64, v % 64
+                g = r * row + q * 16
+                keep = (g >= a) & (g < a + ln)
+                writes.append(np.stack([r[keep] * 64 + q[keep], g[keep]], 1))
+            if i + plan.stages < n_pieces:
+                holds[s] = i + plan.stages
+        assert sum(done) == n_pieces  # every piece issued was waited on before the block exits
+        blocks.append((begin, begin + span, pieces))
+    return blocks, np.concatenate(writes)
+
+
+K5_SHAPES = [(200, 6400), (320, 6400), (12_800_000 // 6400, 6400), (1, 128), (133, 128), (50, 512),
+             (30, 12800), (4, 20000)]
+
+
+@pytest.mark.parametrize("n_rows,G", K5_SHAPES)
+@pytest.mark.parametrize("n_split", [1, 2, 5, 10])
+@pytest.mark.parametrize("per_sm,piece", [(cf.PER_SM, cf.PIECE_BYTES), (2, 16384)])
+def test_copy_floor_spans_pieces_and_heads(n_rows, G, n_split, per_sm, piece):
+    """A numpy model of the kernel's arithmetic (``k5_model``) over the
+    rule's plan: every input byte in exactly one piece of one block, every
+    piece 16-byte aligned and cut into n_split 16-byte multiples (each
+    starting on a 128-byte line but the tail's), no empty span, the
+    busiest block within one piece of the mean, and every output
+    byte written once from the right input byte, row heads cut by a piece
+    or a span boundary included.  A shape the 16-byte rule refuses is
+    refused."""
+    if G % (2 * n_split):
+        with pytest.raises(ValueError, match=f"n_split={n_split}"):
+            cf.copy_floor_plan(n_rows, G, n_split)
+        return
+    plan = cf.copy_floor_plan(n_rows, G, n_split, per_sm=per_sm, piece=piece)
+    n_bytes, row = n_rows * G * 8, G * 8
+    blocks, writes = k5_model(n_rows, G, n_split, plan)
+    assert plan.per_sm * cf.copy_floor_smem(plan) <= cf.SMEM_LIMIT
+    pieces = [p for _, _, ps in blocks for p in ps]
+    assert [a for a, _, _ in pieces] == list(np.cumsum([0] + [ln for _, ln, _ in pieces[:-1]]))
+    assert sum(ln for _, ln, _ in pieces) == n_bytes
+    for a, ln, parts in pieces:
+        assert a % 16 == 0 and 0 < ln <= plan.piece and sum(parts) == ln
+        assert len(parts) == n_split and all(p > 0 and p % 16 == 0 for p in parts)
+        assert a % 128 == 0 and (parts[0] % 128 == 0 or a + ln == n_bytes)
+    spans = [end - begin for begin, end, _ in blocks]
+    assert min(spans) > 0 and all(sp % (16 * n_split) == 0 for sp in spans)
+    assert max(spans) <= n_bytes / plan.blocks + plan.piece
+    out_vec, src = writes[:, 0], writes[:, 1]
+    np.testing.assert_array_equal(np.bincount(out_vec, minlength=n_rows * 64), 1)
+    np.testing.assert_array_equal(src, out_vec // 64 * row + out_vec % 64 * 16)
+    cuts = [begin for begin, _, _ in blocks[1:]], [a for _, _, ps in blocks for a, _, _ in ps[1:]]
+    heads_cut = [sum(0 < a % row < 1024 for a in c) for c in cuts]
+    if G <= 512:
+        assert heads_cut[0] > 0  # span boundaries inside row heads
+    if G == 6400 and n_split < 10 and per_sm == 2:
+        assert heads_cut[1] > 0  # piece boundaries inside row heads
+    if n_bytes <= 16 << 20:
+        x = np.random.default_rng(n_rows + G).integers(0, 256, n_bytes, dtype=np.uint8)
+        out = np.empty((n_rows * 64, 16), np.uint8)
+        out[out_vec] = x.reshape(-1, 16)[src // 16]
+        np.testing.assert_array_equal(out.reshape(n_rows, 1024), x.reshape(n_rows, row)[:, :1024])
 
 
 @pytest.mark.parametrize(
@@ -201,7 +313,29 @@ def test_floor_probe_entry_point_keeps_the_arms_and_metric_names(only, metrics, 
     if only == "prelude":
         assert lines[0]["check"] == "prelude_vs_plain_mxu" and lines[0]["rel_err"] < 5e-5
     if only == "dma":
-        assert all(ln["values_exact"] for ln in lines)
+        assert all(ln["values_exact"] and ln["plan"]["blocks"] > 0 for ln in lines if "metric" in ln)
+        assert lines[-1]["yardstick"] == "read_sum_f32" and lines[-1]["per_tick_ms"] > 0
+
+
+@pytest.mark.parametrize(
+    "spec,want",
+    [
+        ("1x4096", {"per_sm": 1, "piece": 4096, "stages": 2, "blocks": 100, "unit": 128}),
+        ("2x16384", {"per_sm": 2, "piece": 4096, "stages": 1, "blocks": 200, "unit": 128}),
+        ("1x98304", {"per_sm": 1, "piece": 8192, "stages": 1, "blocks": 100, "unit": 128}),
+    ],
+)
+def test_floor_probe_times_other_k5_plans(spec, want, capsys, monkeypatch):
+    """``--plan`` adds one line a plan to the dma arm (at 100 SMs here, so
+    that the blocks differ from the rule's on any card)."""
+    monkeypatch.setattr(cf, "SM_COUNT", 100)
+    assert floor.main(["--device", "cpu", "--only", "dma", "--tick", "102400", "--reps", "1", "--plan", spec]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    (line,) = [ln for ln in lines if ln.get("metric") == f"dma_plan_{spec}_msps"]
+    assert line["plan"] == want and line["values_exact"] and line["ok"]
+    assert line["is_rule_plan"] == (spec == "1x98304")
+    with pytest.raises(SystemExit):
+        floor.main(["--device", "cpu", "--only", "dma", "--plan", "2x16384a16"])
 
 
 PLAN_ARGS = ["--kernel", "fm_fused", "--T", "728", "--D", "66", "--M", "20000"]

@@ -4,11 +4,19 @@ benchmarks/kernel_floor_probe.py).
 At the WBFM shape (T=546, D=50, taps folded with a +2.5 MHz shift) and a
 tick of 1,280,000 or 2,048,000 samples, one JSON line per arm:
 
-  * ``dma``     — kernel K5 (``kernels.copy_floor``) at n_split 1, 2, 5, 10:
-                  the tick pulled whole through shared memory, zero
+  * ``dma``     — kernel K5 (``kernels.copy_floor``) at n_split 1, 2, 5, 10,
+                  each line with the plan ``copy_floor_plan`` picks: the
+                  tick pulled whole through shared memory, zero
                   arithmetic.  Its best rate is the ceiling the other arms
                   print beside their own.  On a card its first line is the
-                  timer's floor: one trivial launch timed the same way;
+                  timer's floor: one trivial launch timed the same way; its
+                  last is a read yardstick, ``torch.sum`` over the same
+                  rotating ticks viewed as float32 (one PyTorch call that
+                  reads the same bytes once; the port never calls it).
+                  ``--plan PER_SMxPIECE`` (repeatable) also times plans
+                  other than the rule's at n_split 1: blocks an SM and the
+                  largest piece in bytes, uncounted launches through
+                  ``copy_floor.launch``;
   * ``prelude`` — kernel K2 (``banded_fir_prelude``) streaming with its
                   8-row carry, after a value check against
                   ``fir.fir_extended(mode='mxu')``;
@@ -24,6 +32,10 @@ through a set larger than the L2 cache, so every arm but ``noslice`` reads
 device memory.
 
 Run:  python -m tpusdr_torch.benchmarks.kernel_floor_probe [--only dma]
+      python -m tpusdr_torch.benchmarks.kernel_floor_probe --only dma --tick 12800000
+(the second: K5 alone at a 102 MB tick, past the L2 cache on its own, which
+separates the kernel's fixed part from its rate; 12,800,000 is a multiple
+of 51,200 like every tick the probe takes).
 ``--device`` defaults to ``cuda``; without a card pass ``--device cpu``
 (the plain versions on the host clock: a check of the arms, not a
 measurement).
@@ -147,10 +159,22 @@ def arm_steps(xs: torch.Tensor, ctaps: torch.Tensor, decimation: int) -> dict:
     }
 
 
+def parse_plan(spec: str) -> dict:
+    """``PER_SMxPIECE`` (blocks an SM, the largest piece in bytes) as
+    ``copy_floor_plan`` keywords."""
+    try:
+        per_sm, piece = (int(v) for v in spec.split("x"))
+    except ValueError:
+        raise ValueError(f"plan {spec!r} is not PER_SMxPIECE") from None
+    return {"per_sm": per_sm, "piece": piece}
+
+
 def floor_probe(device, tick: int = TICKS[0], reps: int = 20, only: str = "all",
-                seed: int = 0, emit=None) -> list[dict]:
+                seed: int = 0, emit=None, plans: tuple[str, ...] = ()) -> list[dict]:
     """Run the arms ``only`` names at one tick; returns (and emits) their
-    lines.  Raises ``ValueError`` for a tick the prelude form cannot take."""
+    lines.  ``plans``: K5 plans besides the rule's (``parse_plan``), timed
+    in the ``dma`` arm.  Raises ``ValueError`` for a tick the prelude form
+    cannot take."""
     device = torch.device(device)
     G, _ = fir_banded.prelude_plan(T, D)
     guard = fir_banded._GUARD
@@ -181,18 +205,34 @@ def floor_probe(device, tick: int = TICKS[0], reps: int = 20, only: str = "all",
                 note="one trivial launch on the same timer: what every arm's time holds besides its work")
         n_rows = tick // G
         turn = itertools.cycle(xs)
-        for n_split in N_SPLITS:
-            got = cf.copy_floor(xs[0].view(n_rows, G), n_split)
-            exact = bool(torch.equal(got, cf.copy_floor_plain(xs[0].view(n_rows, G))))
-            ms = _per_tick_ms(lambda: cf.copy_floor(next(turn).view(n_rows, G), n_split), reps, device)
+        sms = cf.sm_count(device.index or 0) if device.type == "cuda" else cf.SM_COUNT
+        want = cf.copy_floor_plain(xs[0].view(n_rows, G))
+
+        def dma_line(metric: str, call, plan: cf.CopyFloorPlan, **extra):
+            exact = bool(torch.equal(call(xs[0].view(n_rows, G)), want))
+            ms = _per_tick_ms(lambda: call(next(turn).view(n_rows, G)), reps, device)
             gbps = tick * 8 / (ms * 1e6)
             total = cf.moved_bytes(n_rows, G) / (ms * 1e6)
             real = device.type != "cuda" or total <= H100_PEAK_GBPS
-            out(metric=f"dma_floor_split{n_split}_msps", **_rates(tick, ms), dma_gbps=gbps,
-                moved_gbps=total, values_exact=exact, within_peak=real, ok=exact and real,
+            out(metric=metric, **_rates(tick, ms), dma_gbps=gbps, moved_gbps=total, plan=plan._asdict(),
+                values_exact=exact, within_peak=real, ok=exact and real, **extra,
                 note="asynchronous copy in + (n_rows, 128) out only; random data, ticks rotate past the L2")
-            if exact and real:
+            return gbps if exact and real else None
+
+        for n_split in N_SPLITS:
+            gbps = dma_line(f"dma_floor_split{n_split}_msps", lambda x, n_split=n_split: cf.copy_floor(x, n_split),
+                            cf.copy_floor_plan(n_rows, G, n_split, sms))
+            if gbps is not None:
                 ceiling = max(ceiling or 0.0, gbps)
+        for spec in plans:
+            plan = cf.copy_floor_plan(n_rows, G, 1, sms, **parse_plan(spec))
+            launch = cf.launch if device.type == "cuda" else lambda x, n_split, plan: cf.copy_floor_plain(x)
+            dma_line(f"dma_plan_{spec}_msps", lambda x, plan=plan: launch(x, 1, plan), plan,
+                     is_rule_plan=plan == cf.copy_floor_plan(n_rows, G, 1, sms))
+        ms = _per_tick_ms(lambda: next(turn).view(torch.float32).sum(), reps, device)
+        out(yardstick="read_sum_f32", per_tick_ms=ms, read_gbps=tick * 8 / (ms * 1e6),
+            note="torch.sum over the same rotating ticks viewed as float32: one PyTorch call that reads "
+                 "the tick's bytes once (a yardstick of the read rate, not the library call)")
 
     def timed(name: str, **extra):
         ms = _per_tick_ms(steps[name], reps, device)
@@ -225,14 +265,21 @@ def main(argv=None) -> int:
     ap.add_argument("--tick", type=int, nargs="*", default=list(TICKS),
                     help="tick lengths in samples (multiples of 51,200)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plan", action="append", default=[],
+                    help="a K5 plan to time besides the rule's, PER_SMxPIECE (dma arm, n_split 1)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu to run the plain versions on the CPU")
+    for spec in args.plan:
+        try:
+            parse_plan(spec)
+        except ValueError as e:
+            ap.error(f"--plan {spec}: {e}")
     ok = True
     for tick in args.tick:
         lines = floor_probe(device, tick, args.reps, args.only, args.seed,
-                            emit=lambda kw: print(json.dumps(kw), flush=True))
+                            emit=lambda kw: print(json.dumps(kw), flush=True), plans=tuple(args.plan))
         ok = ok and all(line.get("ok", True) for line in lines)
     return 0 if ok else 1
 

@@ -99,10 +99,12 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_fir_poly.restype = i
         lib.tpusdr_fir_poly_smem.argtypes = [i, i, i, i, i]
         lib.tpusdr_fir_poly_smem.restype = i64
-        lib.tpusdr_copy_floor.argtypes = [p, i64, i, i, i, i, p, i, p]
+        lib.tpusdr_copy_floor.argtypes = [p, i64, i, i, i, i, i, i, p, i, p]
         lib.tpusdr_copy_floor.restype = i
-        lib.tpusdr_copy_floor_smem.argtypes = [i, i, i]
+        lib.tpusdr_copy_floor_smem.argtypes = [i, i]
         lib.tpusdr_copy_floor_smem.restype = i64
+        lib.tpusdr_copy_floor_resident.argtypes = [i64, i]
+        lib.tpusdr_copy_floor_resident.restype = i
         lib.tpusdr_staging_probe.argtypes = [i, p, i64, i, i, i, p, i, p]
         lib.tpusdr_staging_probe.restype = i
         lib.tpusdr_staging_probe_smem.argtypes = [i, i]

@@ -10,31 +10,72 @@ read against.
 The port's input is one interleaved ``complex64`` (n_rows, G) tensor, not
 two float32 planes, and the output is (n_rows, 128) ``complex64``.
 ``n_split`` keeps its name and meaning: the number of concurrent copies
-each staged chunk is cut into.
+each staged piece is cut into.
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version,
-``x[:, :128].clone()``.  The plain version reads 2% of the bytes, so its
-time says nothing about the kernel's: only the values are compared.
+``copy_floor_plan`` cuts a launch: the flat tick in one span of equal
+bytes a block of a persistent grid, one block an SM, each span walked in
+equal pieces of up to 96 KB through a ring of shared-memory stages.  A CUDA tensor launches the kernel; a CPU
+tensor takes the plain version, ``x[:, :128].clone()``.  The plain version
+reads 2% of the bytes, so its time says nothing about the kernel's: only
+the values are compared.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from tpusdr_torch.kernels.dispatch import check_launch, launch_target, on_cuda
+from tpusdr_torch.kernels.fir_banded import SM_COUNT, SM_SMEM, SMEM_LIMIT
+from tpusdr_torch.utils.numerics import cdiv
 
 OUT_COLS = 128  # columns of each row that are written back
-CHUNK_BYTES = 48 << 10  # rows are gathered into chunks of about this size
-MAX_STAGES = 4
-SMEM_LIMIT = 232_448  # shared memory one block may opt into on an H100
+PER_SM = 1  # blocks an SM
+PIECE_BYTES = 96 << 10  # the largest piece: a span is cut into the fewest equal pieces up to this
+ALIGN = 128  # bytes: each of a piece's n_split copies starts on a 128-byte line
+BAR_BYTES = 8  # one mbarrier a stage
+MAX_TICK_BYTES = 1 << 32  # the kernel's byte offsets are 32-bit
 
 
-def copy_floor_plan(G: int, n_split: int = 1) -> tuple[int, int]:
-    """(chunk_rows, stages) of a launch: whole rows gathered to about
-    ``CHUNK_BYTES`` (one row when a row is longer), and as many stages as
-    fit a block's shared memory, at most ``MAX_STAGES``.  Raises for a shape
-    the copy's 16-byte rule or the shared memory cannot take."""
-    G, n_split = int(G), int(n_split)
+class CopyFloorPlan(NamedTuple):
+    """How one K5 launch is cut: ``per_sm`` blocks an SM, pieces of
+    ``piece`` bytes, a ring of ``stages`` pieces a block, ``blocks`` blocks,
+    and the ``unit`` of bytes spans are cut in."""
+
+    per_sm: int
+    piece: int
+    stages: int
+    blocks: int
+    unit: int
+
+
+def copy_floor_smem(plan: CopyFloorPlan) -> int:
+    """Dynamic shared memory of one block (csrc/copy_floor.cu,
+    ``tpusdr_copy_floor_smem``): the ring and a barrier a stage."""
+    return plan.stages * (plan.piece + BAR_BYTES)
+
+
+def copy_floor_plan(n_rows: int, G: int, n_split: int = 1, sms: int = SM_COUNT, *,
+                    per_sm: int = PER_SM, piece: int = PIECE_BYTES) -> CopyFloorPlan:
+    """The plan of a K5 launch over an (n_rows, G) tick.
+
+    Spans are cut in units of 128 * n_split bytes, so that each of a
+    piece's n_split copies starts on a 128-byte line, or of 16 * n_split
+    where such a unit is longer than ``piece`` (the tick's bytes are whole
+    units of 16 * n_split: G % (2 * n_split) == 0).  ``blocks`` is
+    ``per_sm`` blocks on each of ``sms`` SMs, so that every SM moves the
+    same bytes, or one block a unit where the tick holds fewer units (one
+    at least), so that no span is empty; each block's span is a whole
+    number of units, within one unit of every other, and the last also
+    takes the tail of the tick that is no whole unit.  The longest span is
+    cut into the fewest equal pieces of at most ``piece`` bytes (and of
+    the block's share of the SM's shared memory), rounded up to whole
+    units; the ring holds as many pieces as a span has, at most as many as
+    fit that share.  Raises for a shape the copy's 16-byte rule or the
+    shared memory cannot take."""
+    n_rows, G, n_split = int(n_rows), int(G), int(n_split)
     if G < OUT_COLS:
         raise ValueError(f"copy_floor: rows of {G} samples are shorter than the {OUT_COLS} columns kept")
     if n_split < 1 or G % (2 * n_split):
@@ -42,15 +83,30 @@ def copy_floor_plan(G: int, n_split: int = 1) -> tuple[int, int]:
             f"copy_floor: n_split={n_split} does not cut a row of {G} complex64 samples "
             "into pieces of whole 16-byte units"
         )
-    row_bytes = G * 8
-    chunk_rows = max(1, CHUNK_BYTES // row_bytes)
-    stages = min(MAX_STAGES, (SMEM_LIMIT - 8 * MAX_STAGES) // (chunk_rows * row_bytes))
-    if stages < 2:
+    unit = ALIGN * n_split if ALIGN * n_split <= piece else 16 * n_split
+    if unit + BAR_BYTES > SMEM_LIMIT:
         raise ValueError(
-            f"copy_floor: two stages of {chunk_rows * row_bytes} B do not fit "
-            f"{SMEM_LIMIT} B of shared memory"
+            f"copy_floor: a piece of n_split={n_split} copies of 16 bytes or more ({unit} B) "
+            f"does not fit the {SMEM_LIMIT} B of shared memory a block may have"
         )
-    return chunk_rows, stages
+    room = min(SMEM_LIMIT, SM_SMEM // per_sm - 1024)  # each resident block reserves 1 KB
+    if room < unit + BAR_BYTES:
+        per_sm, room = 1, SMEM_LIMIT
+    n_bytes = max(1, n_rows) * G * 8
+    n_units = n_bytes // unit
+    blocks = max(1, min(sms * per_sm, n_units))
+    longest = cdiv(n_units, blocks) * unit + n_bytes % unit
+    largest = max(unit, min(piece, room - BAR_BYTES) // unit * unit)
+    n_pieces = cdiv(longest, largest)
+    piece = cdiv(cdiv(longest, n_pieces), unit) * unit
+    stages = min(room // (piece + BAR_BYTES), n_pieces)
+    return CopyFloorPlan(per_sm, piece, stages, blocks, unit)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a card, read once."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def copy_floor_plain(x: torch.Tensor) -> torch.Tensor:
@@ -63,20 +119,20 @@ def moved_bytes(n_rows: int, G: int) -> int:
     return n_rows * G * 8 + n_rows * OUT_COLS * 8
 
 
-def _launch(x: torch.Tensor, n_split: int) -> torch.Tensor:
+def launch(x: torch.Tensor, n_split: int, plan: CopyFloorPlan) -> torch.Tensor:
+    """One launch of the kernel by ``plan`` on a CUDA tensor (no count: the
+    wrapper counts; a plan probe calls this directly)."""
     from tpusdr_torch.kernels.build import library
 
-    lib = library()
     n_rows, G = x.shape
-    chunk_rows, stages = copy_floor_plan(G, n_split)
-    smem = lib.tpusdr_copy_floor_smem(G, chunk_rows, stages)
-    dev, stream = launch_target(x, smem, f"copy_floor (G={G}, stages={stages})")
+    dev, stream = launch_target(x, copy_floor_smem(plan), f"copy_floor (G={G}, {plan})")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("copy_floor: x must be aligned to 16 bytes")
     out = torch.empty((n_rows, OUT_COLS), dtype=torch.complex64, device=x.device)
-    err = lib.tpusdr_copy_floor(
-        x.data_ptr(), n_rows, G, chunk_rows, n_split, stages, out.data_ptr(), dev, stream
+    err = library().tpusdr_copy_floor(
+        x.data_ptr(), n_rows, G, n_split, plan.unit, plan.blocks, plan.piece, plan.stages,
+        out.data_ptr(), dev, stream,
     )
     check_launch(err, "copy_floor")
     return out
@@ -87,14 +143,19 @@ def copy_floor(x: torch.Tensor, n_split: int = 1) -> torch.Tensor:
     staging every byte of ``x`` through shared memory."""
     if x.dim() != 2 or x.dtype != torch.complex64:
         raise ValueError("copy_floor takes a 2-D complex64 tensor (n_rows, G)")
-    copy_floor_plan(x.shape[1], n_split)  # the shape rule holds on the CPU too
-    if x.shape[0] == 0:
+    if x.numel() * 8 >= MAX_TICK_BYTES:
+        raise ValueError(f"copy_floor: a tick of {x.numel() * 8} B; the kernel's offsets take under {MAX_TICK_BYTES}")
+    n_rows, G = x.shape
+    if not on_cuda(x):
+        copy_floor_plan(n_rows, G, n_split)  # the shape rule holds on the CPU too
+        return copy_floor_plain(x)
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = copy_floor_plan(n_rows, G, n_split, sm_count(index))
+    if n_rows == 0:
         return torch.zeros((0, OUT_COLS), dtype=torch.complex64, device=x.device)
-    if on_cuda(x):
-        out = _launch(x, n_split)
-        copy_floor.launches += 1
-        return out
-    return copy_floor_plain(x)
+    out = launch(x, n_split, plan)
+    copy_floor.launches += 1
+    return out
 
 
 copy_floor.launches = 0

@@ -8,6 +8,8 @@ build or launch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -25,13 +27,19 @@ def on_cuda(*tensors: torch.Tensor | None) -> bool:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def max_smem_optin(device_index: int) -> int:
+    """Shared memory one block may opt into on a card, read once."""
+    from tpusdr_torch.kernels.build import library
+
+    return library().tpusdr_max_smem_optin(device_index)
+
+
 def launch_target(t: torch.Tensor, smem_bytes: int, name: str) -> tuple[int, int]:
     """(device index, current stream handle) for a launch on t's device,
     after checking that one block's shared memory fits the card."""
-    from tpusdr_torch.kernels.build import library
-
     dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    limit = library().tpusdr_max_smem_optin(dev)
+    limit = max_smem_optin(dev)
     if smem_bytes > limit:
         raise ValueError(
             f"{name}: needs {smem_bytes} B of shared memory per block; "

@@ -21,7 +21,10 @@ Phases (each prints lines; any failure exits non-zero):
      past the L2 cache and on one fixed tick, beside a read yardstick
      (``torch.sum`` over the same rotating ticks viewed as float32); the
      staging probes K6-K8 at the probes' shapes on random
-     data.  Each row also gets its bound (bytes over 3.35 TB/s or
+     data, K6 and K7 also with the plan ``staging_plan`` picks (checked:
+     one block on every SM) from device memory (64 inputs in rotation),
+     beside ``add`` and ``mul`` on the same inputs and the timer's trivial
+     launch.  Each row also gets its bound (bytes over 3.35 TB/s or
      operations over 67 TFLOP/s, whichever is longer) and, where one
      PyTorch call computes the same function (``conv1d`` for the FIR
      kernels, a contiguous slice, ``add``, ``mul``, ``conv2d`` with a
@@ -246,6 +249,7 @@ def lowpass(T: int, cutoff: float) -> np.ndarray:
 def kernel_phase(torch, card, dev, am_chain) -> dict:
     """Phase 2: every kernel against its plain version."""
     from tpusdr_torch.benchmarks import plan_probe
+    from tpusdr_torch.benchmarks import staging_probes as probes
     from tpusdr_torch.graph.blocks import FusedFmDemod
     from tpusdr_torch.kernels import build, copy_floor, fir_banded, fir_poly, fm_fused, staging_probes
     from tpusdr_torch.models import receiver
@@ -505,6 +509,21 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
         staging_probes.staged_window_double, 2 * x6.numel() * 4, x6.numel(), exact=True,
         library_fn=lambda: torch.mul(x6, 2.0), library_view=lambda y: y,
     )
+    # K6 and K7 also with the plan their rule picks, from device memory (64
+    # inputs in rotation), beside the library call on the same inputs and
+    # the timer's trivial launch
+    for key, which, library in (("k6", "W4", "torch.add"), ("k7", "X1", "torch.mul")):
+        rot = probes.time_probe(which, dev, input_mode="rotate")[0]
+        check(rot["ok"] and rot["is_rule_plan"] and rot["blocks"] == copy_floor.sm_count(dev.index),
+              f"{which} from device memory: one block on every SM, exact: {rot}")
+        cmp[key].update(plan=rot["plan"], smem=rot["smem"], staged_bytes=rot["staged_bytes"],
+                        device_memory_ms=rot["us"] / 1e3,
+                        device_memory_library_ms=rot["library_us"] / 1e3, launch_floor_ms=rot["launch_floor_us"] / 1e3)
+        print(f"phase 2 {key.upper()} ({which}) plan {rot['plan']}, {rot['smem']} B a block, "
+              f"{rot['staged_bytes']} B staged: "
+              f"{cmp[key]['ms'] * 1e3:.2f} us on a fixed input ({library} {cmp[key]['library_ms'] * 1e3:.2f}), "
+              f"{rot['us']:.2f} from device memory ({library} {rot['library_us']:.2f}); "
+              f"trivial launch {rot['launch_floor_us']:.2f} us; bound {cmp[key]['bound_ms'] * 1e3:.2f} us", flush=True)
     cmp["k8"] = compare(
         torch, card, "K8 staged_shift_sum (1034, 128) P=11",
         lambda: staging_probes.staged_shift_sum(x8, Pp), lambda: staging_probes.staged_shift_sum_plain(x8, Pp),

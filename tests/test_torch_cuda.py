@@ -443,11 +443,31 @@ def test_copy_floor_refuses_a_split_that_does_not_divide(cuda, rng):
     assert lib.tpusdr_copy_floor_resident(tcf.copy_floor_smem(plan), 0) >= plan.per_sm and plan.stages == 2
 
 
-@pytest.mark.parametrize("rows,W,B,P", [(4096, 128, 1024, 11), (777, 36, 100, 11), (33, 4, 32, 3), (5, 8, 1, 1)])
-def test_staging_probes_k6_k7_k8(cuda, rng, rows, W, B, P):
-    """The probes' shapes and odd ones (rows not a multiple of the block or
-    of the 32-row sub-tile, a narrow row), exact on random data."""
-    x = torch.from_numpy(rng.standard_normal((rows + P - 1, W)).astype(np.float32)).to(cuda)
+@pytest.mark.parametrize(
+    "rows,W,B,P,offset",
+    [
+        (4096, 128, 1024, 11, 0),  # the probes' shapes
+        (777, 36, 100, 11, 0),
+        (33, 4, 32, 3, 0),
+        (5, 8, 1, 1, 0),
+        (4096, 128, 1000, 11, 0),  # spans that cross a probe-block boundary
+        (2000, 64, 33, 40, 0),  # halos past the next probe block, in the next block's span
+        (100, 128, 16, 5, 0),  # fewer rows than SMs
+        (20, 4, 3, 2, 0),  # two blocks
+        (1000, 4, 64, 7, 1),  # x 16 bytes past a 128-byte line: a slice of a larger tensor
+        (4099, 128, 1024, 11, 0),  # a row count that no piece divides
+        (4096, 128, 1024, 1, 0),  # P = 1
+    ],
+)
+def test_staging_probes_k6_k7_k8(cuda, rng, rows, W, B, P, offset):
+    """The probes' shapes and odd ones, exact on random data, with NaN rows
+    just past the input in the same allocation; K6 and K7 by the rule's
+    plan through the wrappers, then by plans whose rings are refilled
+    (uncounted launches)."""
+    full = rng.standard_normal((offset + rows + P - 1 + 8, W)).astype(np.float32)
+    full[offset + rows + P - 1 :] = np.nan
+    x = torch.from_numpy(full).to(cuda)[offset : offset + rows + P - 1]
+    assert x.data_ptr() % 128 == 16 * offset % 128
     counts = [w.launches for w in (tsp.staged_add_one, tsp.staged_window_double, tsp.staged_shift_sum)]
     assert torch.equal(tsp.staged_add_one(x[:rows], B), tsp.staged_add_one_plain(x[:rows]))
     assert torch.equal(tsp.staged_window_double(x, B, P), tsp.staged_window_double_plain(x, P))
@@ -456,8 +476,42 @@ def test_staging_probes_k6_k7_k8(cuda, rng, rows, W, B, P):
     torch.cuda.synchronize()
     assert [w.launches for w in (tsp.staged_add_one, tsp.staged_window_double, tsp.staged_shift_sum)] == [
         c + 1 for c in counts]
+    for op, xin, plain in ((0, x[:rows], tsp.staged_add_one_plain(x[:rows])),
+                           (1, x, tsp.staged_window_double_plain(x, P))):
+        rule = tsp.staging_plan(rows, W, *tsp.windows(op, rows, B, P), tcf.sm_count(0))
+        for plan in (rule, rule._replace(stages=rule.groups), rule._replace(piece=256, stages=4, groups=2),
+                     rule._replace(piece=256, stages=8, groups=8), rule._replace(piece=128, stages=1, groups=1)):
+            assert torch.equal(tsp.launch(op, xin, B, P, plan), plain), (op, plan)
+    torch.cuda.synchronize()
     with pytest.raises(ValueError, match="multiple of 4"):
         tsp.staged_add_one(torch.zeros(8, 6, device=cuda))
+
+
+def test_staging_wrappers_make_no_size_query_after_the_first_call(cuda, rng, monkeypatch):
+    """K6's and K7's plan and shared memory are worked out once a shape and
+    card: after the first call no size, shared-memory or SM query is made
+    (counting stand-ins over the library's size functions and the device
+    properties).  The C side's shared memory is the plan's."""
+    from tpusdr_torch.kernels import build
+
+    lib = build.library()
+    plan = tsp.staging_plan(4096, 128, 1024, 10, tcf.sm_count(0))
+    assert lib.tpusdr_staging_smem(plan.piece, plan.stages) == tsp.staging_smem(plan)
+    queries = []
+    for name in ("tpusdr_staging_smem", "tpusdr_staging_probe_smem", "tpusdr_max_smem_optin",
+                 "tpusdr_copy_floor_resident"):
+        real = getattr(lib, name)
+        monkeypatch.setattr(lib, name, lambda *a, real=real, name=name: queries.append(name) or real(*a))
+    props = torch.cuda.get_device_properties
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda *a, **k: queries.append("props") or props(*a, **k))
+    x = torch.from_numpy(rng.standard_normal((3006, 60)).astype(np.float32)).to(cuda)  # a shape no other test takes
+    tsp.staged_add_one(x[:2999], 100), tsp.staged_window_double(x, 100, 8)
+    first = len(queries)
+    for _ in range(3):
+        assert torch.equal(tsp.staged_add_one(x[:2999], 100), x[:2999] + 1.0)
+        assert torch.equal(tsp.staged_window_double(x, 100, 8), 2.0 * x[:2999])
+    torch.cuda.synchronize()
+    assert len(queries) == first, queries[first:]
 
 
 # -- queues and checkpoints on the card ---------------------------------------------------

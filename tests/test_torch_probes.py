@@ -255,6 +255,149 @@ def test_copy_floor_spans_pieces_and_heads(n_rows, G, n_split, per_sm, piece):
         np.testing.assert_array_equal(out.reshape(n_rows, 1024), x.reshape(n_rows, row)[:, :1024])
 
 
+def k67_model(rows_out, W, B, halo_rows, plan):
+    """The span, window, ring and store arithmetic of ``staged_kernel`` in
+    csrc/staging_probes.cu, block by block, over the staged windows S
+    (window g: the B output rows of probe block g, then its halo of
+    ``halo_rows`` rows; the last ends with x): returns each block's (begin,
+    span, [[(window, S offset, x offset, bytes, bytes written), ...] a
+    piece]).  The ring is walked as the kernel walks it: thread 0 of group
+    g issues its pieces g, g + groups, ... up to the ring's depth, piece i
+    waits on barrier i % stages for parity (i // stages) & 1, and the
+    stage is refilled with piece i + stages after that wait; each stage is
+    waited on by one group only, so the group alone meets before it
+    refills the stage."""
+    assert plan.stages % plan.groups == 0 and plan.groups in sp.GROUPS
+    row, unit = 4 * W, plan.unit
+    n_out, halo, blk = rows_out * row, halo_rows * row, B * row
+    n_win = -(-rows_out // B)
+    win, last = blk + halo, n_win - 1
+    n_s = n_out + n_win * halo
+    n_units = n_s // unit
+    per_block, extra = divmod(n_units, plan.blocks)
+    blocks = []
+    for b in range(plan.blocks):
+        begin = (b * per_block + min(b, extra)) * unit
+        span = (per_block + (b < extra)) * unit + (n_s - n_units * unit if b + 1 == plan.blocks else 0)
+        n_pieces = -(-span // plan.piece)
+        holds = [None] * plan.stages  # the piece each stage was last filled with
+        done = [0] * plan.stages  # phases each barrier has completed
+        for i in range(min(plan.stages, n_pieces)):
+            holds[i] = i
+        pieces = []
+        for i in range(n_pieces):
+            s = i % plan.stages
+            assert s % plan.groups == i % plan.groups  # the stage is the group's own
+            assert holds[s] == i and (i // plan.stages) & 1 == done[s] & 1  # the wait returns on piece i's phase
+            done[s] += 1
+            a = begin + i * plan.piece
+            ln = min(plan.piece, span - i * plan.piece)
+            w = min(a // win, last)
+            r, at, parts = a - w * win, 0, []
+            while at < ln:
+                n = min(ln - at, (n_out - w * blk + halo if w == last else win) - r)
+                out_bytes = n_out - w * blk if w == last else blk
+                parts.append((w, a + at, w * blk + r, n, max(0, min(out_bytes - r, n))))
+                at, w, r = at + n, w + 1, 0
+            pieces.append(parts)
+            if i + plan.stages < n_pieces:
+                holds[s] = i + plan.stages
+        assert sum(done) == n_pieces  # every piece issued was waited on before the block exits
+        blocks.append((begin, span, pieces))
+    return blocks
+
+
+# (rows_out, W, B, P): the probes' shape (W4: B = 1024; X1: P = 11) and
+# the card test's odd ones, each staged as K6 (one window, no halo) and as
+# K7 (a window of B + P-1 rows a probe block)
+K67_SHAPES = [(4096, 128, 1024, 11), (777, 36, 100, 11), (33, 4, 32, 3), (5, 8, 1, 1), (4096, 128, 1000, 11),
+              (2000, 64, 33, 40), (100, 128, 16, 5), (20, 4, 3, 2), (4099, 128, 1024, 11), (1, 4, 1, 4)]
+
+
+@pytest.mark.parametrize("rows_out,W,B,P", K67_SHAPES)
+@pytest.mark.parametrize("op", [0, 1])
+@pytest.mark.parametrize("sms", [132, 60, 7])
+def test_staging_spans_ring_and_windows(rows_out, W, B, P, op, sms):
+    """A numpy model of K6's and K7's arithmetic (``k67_model``) over the
+    rule's plan and over plans whose ring must be refilled: every output
+    byte written once, from the same byte of x; every copy 16-byte sized,
+    inside x and starting on a 128-byte line of S or at a window's start;
+    no span empty and none a unit and the tail longer than another; a
+    block's shared memory within 232,448 B; K7 staging each probe block's
+    whole window of B + P-1 rows (up to the end of x) once, and so the
+    output and one halo a probe block, no more."""
+    Bw, halo_rows = sp.windows(op, rows_out, B, P)
+    row = 4 * W
+    n_out, n_x = rows_out * row, (rows_out + halo_rows) * row
+    n_s = sp.staged_bytes(rows_out, W, Bw, halo_rows)
+    n_win = -(-rows_out // Bw)
+    assert n_s == n_out + n_win * halo_rows * row
+    rule = sp.staging_plan(rows_out, W, Bw, halo_rows, sms)
+    assert sp.staging_smem(rule) <= sp.SMEM_LIMIT and rule.unit == 128
+    assert rule.blocks == min(sms, max(1, n_s // 128))
+    x = np.random.default_rng(rows_out + W).integers(0, 256, n_x, dtype=np.uint8)
+    refilled = (rule._replace(stages=rule.groups), rule._replace(piece=256, stages=4, groups=2),
+                rule._replace(piece=128, stages=3, groups=1), rule._replace(piece=256, stages=8, groups=8))
+    for plan in (rule, *refilled):
+        blocks = k67_model(rows_out, W, Bw, halo_rows, plan)
+        spans = [span for _, span, _ in blocks]
+        assert min(spans) > 0 and max(spans) - min(spans) <= 128 + n_s % 128
+        out = np.zeros(n_out, np.uint8)
+        written = np.zeros(n_out, np.int64)
+        per_window = np.zeros(n_win, np.int64)
+        s_next = 0
+        for begin, span, pieces in blocks:
+            assert begin == s_next and begin % 128 == 0
+            s_next += span
+            for parts in pieces:
+                assert sum(n for *_, n, _ in parts) <= plan.piece
+                at = 0
+                for w, s_off, x_off, n, wr in parts:
+                    assert n > 0 and n % 16 == 0 and x_off % 16 == 0 and x_off + n <= n_x
+                    assert s_off % 128 == 0 or x_off == w * Bw * row  # a piece's start or a window's
+                    stage = x[x_off : x_off + n]  # what the bulk copy lands at stage offset `at`
+                    out[x_off : x_off + wr] = stage[:wr]
+                    written[x_off : x_off + wr] += 1
+                    per_window[w] += n
+                    at += n
+        assert s_next == n_s
+        np.testing.assert_array_equal(written, 1)
+        np.testing.assert_array_equal(out, x[:n_out])
+        # window g is rows [g*B, g*B + B + P-1) up to the end of x, staged once
+        want = [min(Bw * (g + 1) + halo_rows, rows_out + halo_rows) * row - g * Bw * row for g in range(n_win)]
+        np.testing.assert_array_equal(per_window, want)
+    if (rows_out, W, B, P, op, sms) == (4096, 128, 1024, 11, 1, 132):
+        assert n_s == 2_117_632  # 2,752,512 B before: a halo a 32-row sub-tile
+
+
+def test_staging_plan_rule():
+    """One block an SM (one a 128-byte unit where fewer), the longest span
+    in the fewest equal pieces of at most 8 KB, a group of warps for each
+    (up to 8, a power of two), a ring as deep as a span has pieces,
+    rounded up to whole groups."""
+    assert sp.staging_plan(4096, 128, 4096, 0) == (132, 128, 8064, 2, 2)  # spans of 15,872-16,000 B
+    assert sp.staging_plan(4096, 128, 1024, 10) == (132, 128, 8064, 2, 2)  # 16,000-16,128 B with the halos
+    assert sp.staging_plan(4096, 128, 1024, 10, piece=4096) == (132, 128, 4096, 4, 4)
+    assert sp.staging_plan(4096, 128, 1024, 10, piece=2048, groups=2) == (132, 128, 2048, 8, 2)
+    assert sp.staging_plan(5, 8, 5, 0) == (1, 128, 256, 1, 1)  # 160 B: one unit and a tail of 32
+    assert sp.staging_plan(1, 4, 1, 0) == (1, 128, 128, 1, 1)  # 16 B: the tail alone
+    assert sp.staging_plan(1 << 20, 128, 1 << 20, 0) == (132, 128, 8192, 24, 8)  # 4 MB spans: a ring of 24
+    assert sp.staged_bytes(4096, 128, 1024, 10) == 2_117_632
+    with pytest.raises(ValueError, match="groups"):
+        sp.staging_plan(4096, 128, 4096, 0, groups=3)
+
+
+def test_staging_probes_refuse_x_of_4_gb():
+    """The kernels' byte offsets are 32-bit: x, or the windows it stages,
+    of 2^32 bytes is refused (broadcast views, so nothing is allocated)."""
+    x = torch.zeros(1, 1).expand(1 << 16, 1 << 14)
+    small = torch.zeros(1, 1).expand(1 << 16, 1 << 10)  # 256 MB, staging 4.6 GB as windows of one row and 16
+    for call in (lambda: sp.staged_add_one(x), lambda: sp.staged_window_double(x, 1024, 11),
+                 lambda: sp.staged_window_double(small, 1, 17)):
+        with pytest.raises(ValueError, match="offsets"):
+            call()
+
+
 @pytest.mark.parametrize(
     "call,match",
     [
@@ -287,6 +430,35 @@ def test_probe_entry_points_refuse_the_cpu_unless_asked(main, monkeypatch):
     with pytest.raises(SystemExit) as e:
         main([])
     assert e.value.code == 2
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [
+        ["W4", "--time", "--device", "cpu"],
+        ["X1", "--time"],
+        ["X2", "--time", "--device", "cpu"],
+        ["W4", "--device", "cpu", "--plan", "4096x4"],
+        ["X1", "--device", "cpu", "--input", "rotate"],
+        ["X1", "--device", "cpu", "--wrapper"],
+        ["X1", "--device", "cpu", "--time", "--wrapper", "--plan", "4096"],
+    ],
+)
+def test_staging_probe_time_needs_a_card(argv, monkeypatch):
+    """``--time`` measures the kernels: without a card, or with ``--device
+    cpu``, it exits with an error, as do its options without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        probes.main(argv)
+    assert e.value.code == 2
+
+
+def test_staging_probe_plan_spec():
+    assert probes.parse_plan("8192") == {"piece": 8192}
+    assert probes.parse_plan("2048x8") == {"piece": 2048, "groups": 8}
+    for bad in ("", "x4", "8192xregs", "-1", "2048x3", "2048x1x1"):
+        with pytest.raises(ValueError, match="PIECE"):
+            probes.parse_plan(bad)
 
 
 @pytest.mark.parametrize(

@@ -105,6 +105,10 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_copy_floor_smem.restype = i64
         lib.tpusdr_copy_floor_resident.argtypes = [i64, i]
         lib.tpusdr_copy_floor_resident.restype = i
+        lib.tpusdr_staging.argtypes = [i, p, i64, i64, i64, i64, i, i, i, i, i, p, i, p]
+        lib.tpusdr_staging.restype = i
+        lib.tpusdr_staging_smem.argtypes = [i, i]
+        lib.tpusdr_staging_smem.restype = i64
         lib.tpusdr_staging_probe.argtypes = [i, p, i64, i, i, i, p, i, p]
         lib.tpusdr_staging_probe.restype = i
         lib.tpusdr_staging_probe_smem.argtypes = [i, i]

@@ -14,15 +14,91 @@ memory and writes from it:
   * ``staged_shift_sum`` (X2, :85-102): ``out[r] = sum_{p<P} x[r + p]``,
     reading the staged block at every row offset.
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version.
-All three are exact: the kernels add in the plain versions' order.
+K6 and K7 stage what the TPU stages, the windows one after another (K7:
+each probe block's output and its halo of P-1 rows, once), cut into one
+span a block of a persistent grid, each span walked in pieces through a
+ring of shared-memory stages by bulk copies (``staging_plan``).  A CUDA
+tensor launches the kernel; a CPU tensor takes the plain version.  All
+three are exact: the kernels add in the plain versions' order.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
+from tpusdr_torch.kernels.copy_floor import sm_count
 from tpusdr_torch.kernels.dispatch import check_launch, launch_target, on_cuda
+from tpusdr_torch.kernels.fir_banded import SM_COUNT, SMEM_LIMIT
+from tpusdr_torch.utils.numerics import cdiv
+
+UNIT = 128  # bytes: spans and pieces start on 128-byte lines of the staged windows
+PIECE_BYTES = 8192  # the largest piece: a span is cut into the fewest equal pieces up to this
+BAR_BYTES = 8  # one mbarrier a stage
+GROUPS = (1, 2, 4, 8)  # groups of a block's 8 warps that take the pieces in turn
+MAX_BYTES = 1 << 32  # the kernels' byte offsets are 32-bit
+
+
+class StagingPlan(NamedTuple):
+    """How one K6 or K7 launch is cut: ``blocks`` blocks, spans in units of
+    ``unit`` bytes, pieces of ``piece`` bytes through a ring of ``stages``
+    (a multiple of ``groups``), and ``groups`` groups of a block's warps
+    that take the pieces in turn."""
+
+    blocks: int
+    unit: int
+    piece: int
+    stages: int
+    groups: int
+
+
+def staging_smem(plan: StagingPlan) -> int:
+    """Dynamic shared memory of one block (csrc/staging_probes.cu,
+    ``tpusdr_staging_smem``): the ring and a barrier a stage."""
+    return plan.stages * (plan.piece + BAR_BYTES)
+
+
+def staged_bytes(rows_out: int, W: int, B: int, halo_rows: int) -> int:
+    """Bytes a launch stages: the windows of B + halo_rows rows one after
+    another (the last one ending with x), the output and one halo a probe
+    block of ``B`` rows."""
+    return (int(rows_out) + cdiv(int(rows_out), int(B)) * int(halo_rows)) * 4 * int(W)
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(1, n).bit_length() - 1)
+
+
+def staging_plan(rows_out: int, W: int, B: int, halo_rows: int, sms: int = SM_COUNT, *,
+                 piece: int = PIECE_BYTES, groups: int | None = None) -> StagingPlan:
+    """The plan of a K6 (``halo_rows`` 0) or K7 (``halo_rows`` P-1) launch
+    that writes ``rows_out`` rows of ``W`` floats, with probe blocks of
+    ``B`` rows.
+
+    The staged windows (``staged_bytes``) are cut into one span a block, in
+    128-byte units, the tail that is no whole unit going with the last
+    span: ``blocks`` is ``sms``, or one block a unit where there are fewer
+    (one at least), so that no span is empty and every SM stages the same
+    bytes.  The longest span is cut into the fewest equal pieces of at most
+    ``piece`` bytes, rounded up to whole units.  The warps are cut into
+    ``groups`` groups, by default the largest of 1, 2, 4, 8 that is at most
+    the pieces of a span, and the ring holds those pieces rounded up to a
+    multiple of ``groups``, up to what fits a block's shared memory."""
+    if groups is not None and groups not in GROUPS:
+        raise ValueError(f"staging: groups={groups} is not one of {GROUPS}")
+    n_s = staged_bytes(max(1, int(rows_out)), W, B, halo_rows)
+    n_units = n_s // UNIT
+    blocks = max(1, min(int(sms), n_units))
+    longest = cdiv(n_units, blocks) * UNIT + n_s % UNIT
+    largest = max(UNIT, min(int(piece), SMEM_LIMIT - BAR_BYTES) // UNIT * UNIT)
+    piece = cdiv(cdiv(longest, cdiv(longest, largest)), UNIT) * UNIT
+    room = SMEM_LIMIT // (piece + BAR_BYTES)
+    n_pieces = cdiv(longest, piece)
+    groups = min(groups or _pow2_floor(min(n_pieces, GROUPS[-1])), _pow2_floor(room))
+    stages = min(cdiv(n_pieces, groups), room // groups) * groups
+    return StagingPlan(blocks, UNIT, piece, stages, groups)
 
 
 def staged_add_one_plain(x: torch.Tensor) -> torch.Tensor:
@@ -49,29 +125,65 @@ def _check(x: torch.Tensor, name: str, halo: int) -> int:
     return x.shape[0] - halo
 
 
-def _launch(op: int, x: torch.Tensor, rows_out: int, B: int, P: int, name: str) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _rule(rows_out: int, W: int, B: int, halo_rows: int, device_index: int) -> StagingPlan:
+    """The rule's plan for a shape on a card, worked out once."""
+    return staging_plan(rows_out, W, B, halo_rows, sm_count(device_index))
+
+
+def windows(op: int, rows_out: int, B: int, P: int) -> tuple[int, int]:
+    """(probe block rows, halo rows) of the staged windows: K6 stages its
+    output as one window, K7 one window of B + P-1 rows a probe block."""
+    return (min(B, rows_out), P - 1) if op else (rows_out, 0)
+
+
+def launch(op: int, x: torch.Tensor, B: int, P: int, plan: StagingPlan) -> torch.Tensor:
+    """One K6 (op 0) or K7 (op 1) launch by ``plan`` on a checked CUDA
+    tensor (no count: the wrappers count; the probe's plan sweep calls
+    this directly)."""
     from tpusdr_torch.kernels.build import library
 
-    lib = library()
+    name = "staged_window_double" if op else "staged_add_one"
     W = x.shape[1]
-    smem = lib.tpusdr_staging_probe_smem(W, 0 if op == 0 else P - 1)
-    dev, stream = launch_target(x, smem, f"{name} (W={W}, P={P})")
+    rows_out = x.shape[0] - (P - 1 if op else 0)
+    dev, stream = launch_target(x, staging_smem(plan), f"{name} (W={W}, {plan})")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: x must be aligned to 16 bytes")
     out = torch.empty((rows_out, W), dtype=torch.float32, device=x.device)
-    err = lib.tpusdr_staging_probe(op, x.data_ptr(), rows_out, W, B, P, out.data_ptr(), dev, stream)
+    Bw, halo_rows = windows(op, rows_out, B, P)
+    err = library().tpusdr_staging(
+        op, x.data_ptr(), rows_out * W * 4, Bw * W * 4, halo_rows * W * 4, cdiv(rows_out, Bw),
+        plan.unit, plan.blocks, plan.piece, plan.stages, plan.groups, out.data_ptr(), dev, stream,
+    )
     check_launch(err, name)
     return out
 
 
+def _check_staged(x: torch.Tensor, name: str, halo: int, block_rows: int) -> int:
+    """``_check``, and what K6 and K7 add: probe blocks of a row or more,
+    and x and the windows it stages under 4 GB.  Returns the number of
+    output rows."""
+    rows = _check(x, name, halo)
+    if block_rows < 1:
+        raise ValueError(f"{name}: block_rows must be positive")
+    staged = staged_bytes(rows, x.shape[1], min(block_rows, max(1, rows)), halo)
+    if max(x.numel() * 4, staged) >= MAX_BYTES:
+        raise ValueError(f"{name}: x of {x.numel() * 4} B staging {staged} B; "
+                         f"the kernel's offsets take under {MAX_BYTES}")
+    return rows
+
+
+def _staged(op: int, x: torch.Tensor, rows: int, B: int, P: int) -> torch.Tensor:
+    index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    return launch(op, x, B, P, _rule(rows, x.shape[1], *windows(op, rows, B, P), index))
+
+
 def staged_add_one(x: torch.Tensor, block_rows: int = 1024) -> torch.Tensor:
     """``x + 1`` through a staged copy of each block of ``block_rows`` rows."""
-    rows = _check(x, "staged_add_one", 0)
-    if block_rows < 1:
-        raise ValueError("staged_add_one: block_rows must be positive")
+    rows = _check_staged(x, "staged_add_one", 0, block_rows)
     if rows and on_cuda(x):
-        out = _launch(0, x, rows, int(block_rows), 1, "staged_add_one")
+        out = _staged(0, x, rows, int(block_rows), 1)
         staged_add_one.launches += 1
         return out
     return staged_add_one_plain(x)
@@ -81,13 +193,11 @@ staged_add_one.launches = 0
 
 
 def staged_window_double(x: torch.Tensor, block_rows: int = 1024, taps: int = 11) -> torch.Tensor:
-    """``2 * x[:R]`` for x of R + taps-1 rows, each block staging the
-    overlapping window of ``block_rows + taps - 1`` rows."""
-    rows = _check(x, "staged_window_double", taps - 1)
-    if block_rows < 1:
-        raise ValueError("staged_window_double: block_rows must be positive")
+    """``2 * x[:R]`` for x of R + taps-1 rows, each block of ``block_rows``
+    rows staging its overlapping window of ``block_rows + taps - 1`` rows."""
+    rows = _check_staged(x, "staged_window_double", taps - 1, block_rows)
     if rows and on_cuda(x):
-        out = _launch(1, x, rows, int(block_rows), int(taps), "staged_window_double")
+        out = _staged(1, x, rows, int(block_rows), int(taps))
         staged_window_double.launches += 1
         return out
     return staged_window_double_plain(x, taps)
@@ -96,13 +206,29 @@ def staged_window_double(x: torch.Tensor, block_rows: int = 1024, taps: int = 11
 staged_window_double.launches = 0
 
 
+def _launch_k8(x: torch.Tensor, rows_out: int, P: int) -> torch.Tensor:
+    from tpusdr_torch.kernels.build import library
+
+    lib = library()
+    W = x.shape[1]
+    smem = lib.tpusdr_staging_probe_smem(W, P - 1)
+    dev, stream = launch_target(x, smem, f"staged_shift_sum (W={W}, P={P})")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("staged_shift_sum: x must be aligned to 16 bytes")
+    out = torch.empty((rows_out, W), dtype=torch.float32, device=x.device)
+    err = lib.tpusdr_staging_probe(2, x.data_ptr(), rows_out, W, rows_out, P, out.data_ptr(), dev, stream)
+    check_launch(err, "staged_shift_sum")
+    return out
+
+
 def staged_shift_sum(x: torch.Tensor, taps: int = 11) -> torch.Tensor:
     """``sum_{p<taps} x[p : p + B]`` for x of B + taps-1 rows."""
     rows = _check(x, "staged_shift_sum", taps - 1)
     if taps < 1:
         raise ValueError("staged_shift_sum: taps must be positive")
     if rows and on_cuda(x):
-        out = _launch(2, x, rows, rows, int(taps), "staged_shift_sum")
+        out = _launch_k8(x, rows, int(taps))
         staged_shift_sum.launches += 1
         return out
     return staged_shift_sum_plain(x, taps)

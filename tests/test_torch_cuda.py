@@ -487,29 +487,73 @@ def test_staging_probes_k6_k7_k8(cuda, rng, rows, W, B, P, offset):
         tsp.staged_add_one(torch.zeros(8, 6, device=cuda))
 
 
+@pytest.mark.parametrize(
+    "rows,W,P,offset",
+    [
+        (1024, 128, 11, 0),  # the probe's shape
+        (200_003, 128, 11, 0),  # past one window a block: the ring refills
+        (100, 128, 11, 0),  # fewer rows than SMs
+        (1, 4, 1, 0),  # one row
+        (1024, 4096, 11, 0),  # wide rows: four column tiles, a copy a row
+        (1024, 4, 11, 0),
+        (1024, 128, 1, 0),  # P = 1, 33: the run-time P loop
+        (1024, 128, 33, 0),
+        (1000, 36, 11, 1),  # x 16 bytes past a 128-byte line: a slice of a larger tensor
+        (777, 4100, 33, 1),  # tiles of 820 floats, the last narrower
+        (1, 4000, 300, 0),  # 42 tiles of 96 floats: 24 threads issue a window's row copies
+    ],
+)
+def test_shift_sum_k8(cuda, rng, rows, W, P, offset):
+    """K8 exact against its plain version, with NaN rows just past the input
+    in the same allocation: the wrapper by the rule's plan, then forced
+    plans (uncounted launches): runs of one, three and 40 rows, so that
+    the ring refills, one, three and seven groups."""
+    full = rng.standard_normal((offset + rows + P - 1 + 8, W)).astype(np.float32)
+    full[offset + rows + P - 1 :] = np.nan
+    x = torch.from_numpy(full).to(cuda)[offset : offset + rows + P - 1]
+    assert x.data_ptr() % 128 == 16 * offset % 128
+    plain = tsp.staged_shift_sum_plain(x, P)
+    before = tsp.staged_shift_sum.launches
+    assert torch.equal(tsp.staged_shift_sum(x, P), plain)
+    torch.cuda.synchronize()
+    assert tsp.staged_shift_sum.launches == before + 1
+    sms = tcf.sm_count(0)
+    forced = [{"run_rows": 1}, {"run_rows": 3, "groups": 3}, {"groups": 1}, {"run_rows": 40, "groups": 7}]
+    for kw in forced:
+        plan = tsp.shift_sum_plan(rows, W, P, sms, **kw)
+        assert torch.equal(tsp.launch_shift_sum(x, P, plan), plain), plan
+    torch.cuda.synchronize()
+    assert tsp.staged_shift_sum.launches == before + 1
+
+
 def test_staging_wrappers_make_no_size_query_after_the_first_call(cuda, rng, monkeypatch):
-    """K6's and K7's plan and shared memory are worked out once a shape and
-    card: after the first call no size, shared-memory or SM query is made
-    (counting stand-ins over the library's size functions and the device
-    properties).  The C side's shared memory is the plan's."""
+    """K6's, K7's and K8's plans and shared memory are worked out once a
+    shape and card: after the first call no size, shared-memory or SM query
+    is made (counting stand-ins over the library's size functions and the
+    device properties).  The C side's shared memory is the plan's."""
     from tpusdr_torch.kernels import build
 
     lib = build.library()
     plan = tsp.staging_plan(4096, 128, 1024, 10, tcf.sm_count(0))
     assert lib.tpusdr_staging_smem(plan.piece, plan.stages) == tsp.staging_smem(plan)
+    for rows, W, P, kw in ((1024, 128, 11, {}), (200_003, 128, 11, {}), (777, 4100, 33, {}),
+                           (50, 8, 3, {"run_rows": 7})):
+        k8 = tsp.shift_sum_plan(rows, W, P, tcf.sm_count(0), **kw)
+        assert lib.tpusdr_shift_sum_smem(rows, P, k8.runs, k8.tile, k8.stages) == tsp.shift_sum_smem(rows, P, k8)
     queries = []
-    for name in ("tpusdr_staging_smem", "tpusdr_staging_probe_smem", "tpusdr_max_smem_optin",
+    for name in ("tpusdr_staging_smem", "tpusdr_shift_sum_smem", "tpusdr_max_smem_optin",
                  "tpusdr_copy_floor_resident"):
         real = getattr(lib, name)
         monkeypatch.setattr(lib, name, lambda *a, real=real, name=name: queries.append(name) or real(*a))
     props = torch.cuda.get_device_properties
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda *a, **k: queries.append("props") or props(*a, **k))
     x = torch.from_numpy(rng.standard_normal((3006, 60)).astype(np.float32)).to(cuda)  # a shape no other test takes
-    tsp.staged_add_one(x[:2999], 100), tsp.staged_window_double(x, 100, 8)
+    tsp.staged_add_one(x[:2999], 100), tsp.staged_window_double(x, 100, 8), tsp.staged_shift_sum(x, 8)
     first = len(queries)
     for _ in range(3):
         assert torch.equal(tsp.staged_add_one(x[:2999], 100), x[:2999] + 1.0)
         assert torch.equal(tsp.staged_window_double(x, 100, 8), 2.0 * x[:2999])
+        assert torch.equal(tsp.staged_shift_sum(x, 8), tsp.staged_shift_sum_plain(x, 8))
     torch.cuda.synchronize()
     assert len(queries) == first, queries[first:]
 

@@ -95,7 +95,8 @@ def test_staged_window_double_plain_is_probe_x1(rng, B, P, grid, W):
     np.testing.assert_array_equal(sp.staged_window_double(torch.from_numpy(x), B, P).numpy(), want)
 
 
-@pytest.mark.parametrize("B,P,W", [(1024, 11, 128), (777, 11, 36), (50, 3, 4)])
+@pytest.mark.parametrize("B,P,W", [(1024, 11, 128), (777, 11, 36), (50, 3, 4), (100, 11, 128), (1, 11, 4),
+                                   (1024, 1, 128), (1024, 33, 128), (1024, 11, 4096), (200_003, 11, 4)])
 def test_staged_shift_sum_plain_is_probe_x2(rng, B, P, W):
     """pallas_mosaic_probes.py:89-93: ``a = x_ref[0:B]``, then for p in
     1..P-1 ``a = a + x_ref[p : p + B]`` (the same order of additions)."""
@@ -387,13 +388,184 @@ def test_staging_plan_rule():
         sp.staging_plan(4096, 128, 4096, 0, groups=3)
 
 
+def div_magic(d):
+    """csrc/staging_probes.cu ``div_magic``: n // d as a multiply and shifts."""
+    s = max(0, (d - 1).bit_length())
+    return ((1 << 32) * ((1 << s) - d) // d + 1) & 0xFFFFFFFF, s
+
+
+def k8_model(x, P, plan):
+    """The unit, window, ring and thread arithmetic of ``shift_sum_kernel``
+    in csrc/staging_probes.cu, block by block, on x (numpy float32): unit u
+    is run u // tiles (by the host's multiply-shift where there are two
+    tiles or more) of column tile u % tiles; warp 0 stages a block's units
+    b, b + blocks, ... up to the ring's depth (a window of full rows by one
+    copy, else a copy a row, row i by lane i mod min(threads, 32) of warp
+    0), unit j of the block waits on stage j % stages, which is refilled
+    with unit j + stages once every thread is past it; thread (c, g) sums
+    float4 column c over its group's slice of the run's rows, the rows
+    added in order.  Every copy, window and output is checked as the kernel
+    would need it (each row of a window copied once, else its barrier never
+    completes); returns the output and the count of writes of each
+    element."""
+    rows_x, W = x.shape
+    rows_out = rows_x - (P - 1)
+    R, extra = divmod(rows_out, plan.runs)
+    n_ct = -(-W // plan.tile)
+    n_units = plan.runs * n_ct
+    magic, shift = div_magic(n_ct) if n_ct > 1 else (0, 0)
+    stage_bytes = sp.shift_sum_window_bytes(rows_out, P, plan)
+    assert stage_bytes % 128 == 0 and plan.stages * (stage_bytes + 8) == sp.shift_sum_smem(rows_out, P, plan)
+    threads = plan.tile // 4 * plan.groups
+    assert plan.tile % 4 == 0 and threads <= 256
+    lanes = min(threads, 32)  # the threads of warp 0, which issue the row copies
+    stride = lanes  # the kernel's lane_count
+    n_long, n_short = -(-(R + 1) // plan.groups), -(-R // plan.groups)
+    out = np.zeros((rows_out, W), np.float32)
+    written = np.zeros((rows_out, W), np.int64)
+
+    def unit(u):
+        r, t = u, 0
+        if n_ct > 1:
+            hi = (u * magic) >> 32
+            r = (hi + ((u - hi) >> 1)) >> (shift - 1)
+            t = u - r * n_ct
+        assert (r, t) == divmod(u, n_ct)
+        col0 = t * plan.tile
+        return r * R + min(r, extra), R + (r < extra), col0, min(plan.tile, W - col0)
+
+    def issue(u):
+        row0, rows, col0, cols = unit(u)
+        assert row0 + rows + P - 1 <= rows_x and (rows + P - 1) * cols * 4 <= stage_bytes
+        assert cols % 4 == 0 and (row0 * W + col0) % 4 == 0  # 16-byte copies from 16-byte addresses
+        window = np.full((rows + P - 1, cols), np.nan, np.float32)
+        if n_ct == 1:
+            assert cols == W  # full rows: one contiguous copy
+            window[:] = x[row0 : row0 + rows + P - 1]
+            return u, window
+        copies = np.zeros(rows + P - 1, np.int64)
+        for lane in range(lanes):
+            for i in range(lane, rows + P - 1, stride):
+                window[i] = x[row0 + i, col0 : col0 + cols]
+                copies[i] += 1
+        np.testing.assert_array_equal(copies, 1)  # the barrier was armed for every row's bytes
+        return u, window
+
+    for b in range(plan.blocks):
+        ring = [issue(b + s * plan.blocks) if b + s * plan.blocks < n_units else None for s in range(plan.stages)]
+        s = 0
+        for u in range(b, n_units, plan.blocks):
+            held, window = ring[s]
+            assert held == u
+            row0, rows, col0, cols = unit(u)
+            n = n_long if rows > R else n_short
+            covered = np.zeros(rows, np.int64)
+            assert cols // 4 <= plan.tile // 4  # a thread for every float4 column
+            for g in range(plan.groups):
+                i0 = min(g * n, rows)
+                i1 = min(i0 + n, rows)
+                covered[i0:i1] += 1
+                if i0 < i1:
+                    a = window[i0:i1]
+                    for p in range(1, P):
+                        a = a + window[i0 + p : i1 + p]
+                    out[row0 + i0 : row0 + i1, col0 : col0 + cols] = a
+                    written[row0 + i0 : row0 + i1, col0 : col0 + cols] += 1
+            np.testing.assert_array_equal(covered, 1)
+            if u + plan.stages * plan.blocks < n_units:
+                ring[s] = issue(u + plan.stages * plan.blocks)
+            s = (s + 1) % plan.stages
+    return out, written
+
+
+def check_shift_sum_plan(rows_out, W, P, sms, plan):
+    """What every K8 plan must give the kernel: runs of R or R+1 rows that
+    hold every output row once, no empty block and none past ``sms``, a
+    ring whose windows and barriers fit a block's shared memory, column
+    tiles that hold every column once, at most 256 threads a block."""
+    assert 1 <= plan.runs <= rows_out and 1 <= plan.blocks <= min(sms, plan.runs * -(-W // plan.tile))
+    R, extra = divmod(rows_out, plan.runs)
+    lengths = [R + (r < extra) for r in range(plan.runs)]
+    assert sum(lengths) == rows_out and max(lengths) - min(lengths) <= 1
+    assert plan.stages >= 1 and sp.shift_sum_smem(rows_out, P, plan) <= sp.SMEM_LIMIT
+    assert plan.tile % 4 == 0 and 4 <= plan.tile <= sp.MAX_TILE
+    n_ct = -(-W // plan.tile)
+    cover = np.zeros(W, np.int64)
+    for t in range(n_ct):
+        cover[t * plan.tile : min(W, (t + 1) * plan.tile)] += 1
+    np.testing.assert_array_equal(cover, 1)
+    assert plan.tile // 4 * plan.groups <= sp.MAX_THREADS and plan.groups >= 1
+
+
+# (rows_out, W, P): the probe's shape, rows past one window a block (the
+# ring refills), fewer rows than SMs, one row, P = 1 and 33, W = 4 and
+# 4096, and 42 column tiles of 96 floats taken by blocks of 24 threads
+# (fewer than a warp issue the row copies)
+K8_SHAPES = [(1024, 128, 11), (200_003, 128, 11), (100, 128, 11), (1, 4, 1), (1, 4, 11), (1024, 128, 1),
+             (1024, 128, 33), (1024, 4, 11), (1024, 4096, 11), (1024, 4096, 33), (5, 8, 3), (2999, 60, 8),
+             (1, 4000, 300)]
+
+
+@pytest.mark.parametrize("rows_out,W,P", K8_SHAPES)
+@pytest.mark.parametrize("sms", [132, 60, 7])
+def test_shift_sum_plan_properties(rows_out, W, P, sms):
+    rule = sp.shift_sum_plan(rows_out, W, P, sms)
+    check_shift_sum_plan(rows_out, W, P, sms, rule)
+    if -(-rule.runs * -(-W // rule.tile) // rule.blocks) > 1:
+        assert rule.stages >= 2  # a block of two units or more overlaps the next window's copy
+    for kw in ({"run_rows": 1}, {"run_rows": 3, "groups": 2}, {"run_rows": 64}, {"groups": 1},
+               {"run_rows": 10**6, "groups": 300}):
+        check_shift_sum_plan(rows_out, W, P, sms, sp.shift_sum_plan(rows_out, W, P, sms, **kw))
+
+
+def test_shift_sum_plan_rule():
+    """At the probe's shape 132 runs of 7-8 rows, one a block, each staging
+    17-18 rows (9 KB); past one window a block, a ring of two; wide rows in
+    column tiles of up to 1024 floats; one row a thread, up to 256
+    threads."""
+    assert sp.shift_sum_plan(1024, 128, 11) == (132, 132, 128, 1, 8)
+    assert sp.shift_sum_staged(1024, 128, 11, sp.shift_sum_plan(1024, 128, 11)) == (1_200_128, 9216)
+    assert sp.shift_sum_plan(1024, 128, 33) == (132, 132, 128, 1, 8)
+    assert sp.shift_sum_plan(200_003, 128, 11) == (132, 1056, 128, 2, 8)  # runs of 189-190 rows
+    assert sp.shift_sum_plan(100, 128, 11) == (100, 100, 128, 1, 1)
+    assert sp.shift_sum_plan(1024, 4096, 11) == (132, 33, 1024, 1, 1)  # 4 tiles: 132 units
+    assert sp.shift_sum_plan(1024, 4096, 33).tile == 820  # five tiles: 33 rows of 1024 floats fit no two stages
+    assert sp.shift_sum_plan(1024, 128, 11, run_rows=2) == (132, 512, 128, 4, 2)
+    with pytest.raises(ValueError, match="fit"):
+        sp.shift_sum_plan(10, 4, 8000)
+
+
+@pytest.mark.parametrize("rows_out,W,P", [s for s in K8_SHAPES if s[0] * s[1] <= 1 << 20] + [(2003, 36, 11)])
+@pytest.mark.parametrize("kw", [{}, {"run_rows": 5}, {"run_rows": 2, "groups": 3}, {"groups": 1}])
+def test_shift_sum_model_is_the_plain_version(rows_out, W, P, kw):
+    """``k8_model`` over the rule's plan and over forced ones (short runs,
+    so that the ring refills; three groups; one group) writes every output
+    element once, exactly as ``staged_shift_sum_plain``."""
+    x = np.random.default_rng(rows_out + W + P).standard_normal((rows_out + P - 1, W)).astype(np.float32)
+    plan = sp.shift_sum_plan(rows_out, W, P, 7, **kw)
+    out, written = k8_model(x, P, plan)
+    np.testing.assert_array_equal(written, 1)
+    np.testing.assert_array_equal(out, sp.staged_shift_sum_plain(torch.from_numpy(x), P).numpy())
+
+
+def test_shift_sum_model_divides_as_the_host_does():
+    """The multiply-shift the host works out for the tile count gives u //
+    n_ct for every unit index up to 2^32 - 1."""
+    u = np.array([0, 1, 2, 3, 1000, 65535, 65536, 10**6, 2**31 - 1, 2**31, 2**32 - 1], dtype=np.uint64)
+    for d in (2, 3, 4, 5, 7, 33, 196, 1000, 4096):
+        magic, shift = div_magic(d)
+        hi = (u * np.uint64(magic)) >> np.uint64(32)
+        q = (hi + ((u - hi) >> np.uint64(1))) >> np.uint64(shift - 1)
+        np.testing.assert_array_equal(q, u // np.uint64(d))
+
+
 def test_staging_probes_refuse_x_of_4_gb():
     """The kernels' byte offsets are 32-bit: x, or the windows it stages,
     of 2^32 bytes is refused (broadcast views, so nothing is allocated)."""
     x = torch.zeros(1, 1).expand(1 << 16, 1 << 14)
     small = torch.zeros(1, 1).expand(1 << 16, 1 << 10)  # 256 MB, staging 4.6 GB as windows of one row and 16
     for call in (lambda: sp.staged_add_one(x), lambda: sp.staged_window_double(x, 1024, 11),
-                 lambda: sp.staged_window_double(small, 1, 17)):
+                 lambda: sp.staged_window_double(small, 1, 17), lambda: sp.staged_shift_sum(x, 11)):
         with pytest.raises(ValueError, match="offsets"):
             call()
 
@@ -459,6 +631,12 @@ def test_staging_probe_plan_spec():
     for bad in ("", "x4", "8192xregs", "-1", "2048x3", "2048x1x1"):
         with pytest.raises(ValueError, match="PIECE"):
             probes.parse_plan(bad)
+    assert probes.parse_plan("8", "X2") == {"run_rows": 8}
+    assert probes.parse_plan("8x2", "X2") == {"run_rows": 8, "groups": 2}
+    assert probes.parse_plan("x8", "X2") == {"groups": 8}
+    for bad in ("", "0", "8x", "8x2x2", "8,2", "x", "8x0"):
+        with pytest.raises(ValueError, match="RUN"):
+            probes.parse_plan(bad, "X2")
 
 
 @pytest.mark.parametrize(

@@ -109,10 +109,10 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_staging.restype = i
         lib.tpusdr_staging_smem.argtypes = [i, i]
         lib.tpusdr_staging_smem.restype = i64
-        lib.tpusdr_staging_probe.argtypes = [i, p, i64, i, i, i, p, i, p]
-        lib.tpusdr_staging_probe.restype = i
-        lib.tpusdr_staging_probe_smem.argtypes = [i, i]
-        lib.tpusdr_staging_probe_smem.restype = i64
+        lib.tpusdr_shift_sum.argtypes = [p, i64, i, i, i, i64, i, i, i, p, i, p]
+        lib.tpusdr_shift_sum.restype = i
+        lib.tpusdr_shift_sum_smem.argtypes = [i64, i, i64, i, i]
+        lib.tpusdr_shift_sum_smem.restype = i64
         lib.tpusdr_max_smem_optin.argtypes = [i]
         lib.tpusdr_max_smem_optin.restype = i64
         lib.tpusdr_error_string.argtypes = [i]

@@ -50,10 +50,31 @@
 //    every plan on an H100 and went.)
 // The kernels' attribute is set once per device; a launch makes no query.
 //
-// K8 (shift_sum_kernel) keeps its first design: the TPU block (1034 rows of
-// 128 lanes) is cut into sub-tiles of 32 rows (16 KB at W = 128), one CUDA
-// block each, with a halo of P-1 rows, staged by 16-byte cp.async copies
-// before one wait.
+// K8 (shift_sum_kernel): out[r] = x[r] + x[r+1] + ... + x[r+P-1], added
+// in that order (X2's kernel body, :89-93), so it is exact against the
+// plain version.  Bytes bound it (x read once, out written once); at the
+// probe's 0.5 MB in, the launch, the first byte's latency and the busiest
+// SM do.
+//  * The output rows are cut into `runs` runs of R or R+1 rows, the columns
+//    into tiles of `tile` floats; a unit is a run of one tile.  A
+//    persistent grid: block b takes units b, b + blocks, ... (one unit a
+//    block at the probe's shape: 132 runs of 7-8 rows on 132 SMs).
+//  * A unit's window, its rows and the P-1 after them, of its columns, is
+//    staged by bulk copies (cp.async.bulk) into one stage of a ring, on the
+//    stage's mbarrier: full rows are contiguous, one copy; a tile narrower
+//    than the row takes one copy a row, issued by the lanes of warp 0
+//    (all the block's threads where it has fewer than 32).
+//    Warp 0 issues the block's first stages before the block meets, and
+//    refills a stage once every thread is done with it, so unit k + stages
+//    is in flight while unit k is summed.
+//  * Threads (tile/4, groups): thread (c, g) owns float4 column c of the
+//    tile and a contiguous slice of the unit's rows (group g).  Its reads of
+//    the stage are 16 bytes, at every row offset 0..P-1, neighbouring
+//    threads on neighbouring addresses, issued before the add chain; its
+//    stores are 16 bytes.  P = 11 (the probe's) is a template parameter,
+//    its 11 loads unrolled; other P run a loop unrolled by 4.
+//  * All index arithmetic on the card is 32-bit (the wrapper refuses x of 4
+//    GB); the host divides (div_magic), the attribute is set once a device.
 //
 // Alignment rule of the copies: source, destination and size of every copy
 // are multiples of 16 bytes, so W must be a multiple of 4 floats and x
@@ -71,7 +92,7 @@ namespace {
 using namespace tpusdr_tma;
 
 constexpr int kThreads = 256;
-constexpr int kSubRows = 32;  // K8: output rows of one CUDA block
+constexpr int kProbeTaps = 11;  // K8: the P of probe X2, known at compile time
 constexpr int kMaxDevices = 64;
 
 // the threads of group g (1..8 groups of kThreads / groups) meet
@@ -187,6 +208,128 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// One output from P staged rows, added in order: `at` its first row's
+// float4 in the stage, `pitch` float4 a staged row.  PS is P where the
+// kernel takes it as a template parameter (the probe's 11), all P loads
+// issued before the add chain; PS = 0 takes P at run time, the loads
+// issued 4 at a time before their adds.
+template <int PS>
+__device__ __forceinline__ float4 shifted_sum(const float4* at, uint32_t pitch, uint32_t P) {
+  if constexpr (PS > 0) {
+    float4 v[PS];
+#pragma unroll
+    for (int p = 0; p < PS; ++p) v[p] = at[p * pitch];
+    float4 a = v[0];
+#pragma unroll
+    for (int p = 1; p < PS; ++p) a = add4(a, v[p]);
+    return a;
+  } else {
+    float4 a = at[0];
+    uint32_t p = 1;
+    for (; p + 4 <= P; p += 4) {
+      const float4 v0 = at[p * pitch], v1 = at[(p + 1) * pitch], v2 = at[(p + 2) * pitch],
+                   v3 = at[(p + 3) * pitch];
+      a = add4(add4(add4(add4(a, v0), v1), v2), v3);
+    }
+    for (; p < P; ++p) a = add4(a, at[p * pitch]);
+    return a;
+  }
+}
+
+// K8, as above.  x holds rows_out + P-1 rows of W floats, out rows_out
+// rows (as float4); `runs` runs of R rows, the first `extra` of them R+1;
+// n_ct column tiles of `tile` floats (the last may be narrower), (ct_magic,
+// ct_shift) divide by n_ct (div_magic; unused for one tile); a group of
+// threads takes n_long rows of a run of R+1 and n_short of one of R; the
+// ring is `stages` stages of `stage` bytes, then a barrier a stage.  PS is
+// P as a template parameter, 0 for P at run time.
+template <int PS>
+__global__ void __launch_bounds__(kThreads)
+    shift_sum_kernel(const float* __restrict__ x, uint32_t W, uint32_t P, uint32_t R,
+                     uint32_t extra, uint32_t n_units, uint32_t n_ct, uint32_t ct_magic,
+                     uint32_t ct_shift, uint32_t tile, uint32_t n_long, uint32_t n_short,
+                     uint32_t stage, int stages, float4* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + static_cast<size_t>(stages) * stage);
+  const uint32_t halo = (PS > 0 ? PS : P) - 1;
+  const uint32_t threads = blockDim.x * blockDim.y;
+  const uint32_t tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const uint32_t lane_count = threads < 32 ? threads : 32;  // warp 0's threads
+  const uint32_t lanes = lane_count == 32 ? 0xffffffffu : (1u << lane_count) - 1;
+  const uint32_t step = gridDim.x;
+  // unit u: run u / n_ct, column tile u % n_ct
+  struct Unit {
+    uint32_t row0, rows, col0, cols;
+  };
+  auto unit = [&](uint32_t u) {
+    uint32_t r = u, t = 0;
+    if (n_ct > 1) {
+      const uint32_t hi = __umulhi(u, ct_magic);
+      r = (hi + ((u - hi) >> 1)) >> (ct_shift - 1);
+      t = u - r * n_ct;
+    }
+    const uint32_t col0 = t * tile;
+    return Unit{r * R + min(r, extra), R + (r < extra ? 1u : 0u), col0, min(tile, W - col0)};
+  };
+  // warp 0 stages unit u's window, its rows and the P-1 after them, in stage s
+  auto issue = [&](uint32_t u, int s) {
+    const Unit w = unit(u);
+    const uint32_t bar = smem_u32(bars + s);
+    const uint32_t dst = smem_u32(smem + static_cast<size_t>(s) * stage);
+    const uint32_t rows = w.rows + halo, bytes = w.cols * 4;
+    const float* src = x + w.row0 * W + w.col0;
+    if (tid == 0) mbar_expect_tx(bar, rows * bytes);
+    if (n_ct == 1) {  // full rows: one contiguous window, one copy
+      if (tid == 0) bulk_load(dst, src, rows * bytes, bar);
+      return;
+    }
+    __syncwarp(lanes);
+    for (uint32_t i = tid; i < rows; i += lane_count) bulk_load(dst + i * bytes, src + i * W, bytes, bar);
+  };
+
+  if (tid < 32) {
+    if (tid == 0) {
+      for (int s = 0; s < stages; ++s) mbar_init(smem_u32(bars + s), 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncwarp(lanes);
+    for (int s = 0; s < stages && blockIdx.x + s * step < n_units; ++s) issue(blockIdx.x + s * step, s);
+  }
+  __syncthreads();  // the barriers are initialised before anyone waits
+  const uint32_t c = threadIdx.x;
+  uint32_t phase = 0;
+  int s = 0;
+  for (uint32_t u = blockIdx.x; u < n_units; u += step) {
+    const Unit w = unit(u);
+    const uint32_t n = w.rows > R ? n_long : n_short;
+    const uint32_t i0 = min(threadIdx.y * n, w.rows), i1 = min(i0 + n, w.rows);
+    const uint32_t pitch = w.cols / 4, opitch = W / 4;
+    while (!mbar_try_wait(smem_u32(bars + s), phase)) {
+    }
+    if (c < pitch && i0 < i1) {
+      const float4* at = reinterpret_cast<const float4*>(smem + static_cast<size_t>(s) * stage) +
+                         i0 * pitch + c;
+      float4* o = out + (w.row0 + i0) * opitch + w.col0 / 4 + c;
+      for (uint32_t i = i0; i < i1; ++i, at += pitch, o += opitch) *o = shifted_sum<PS>(at, pitch, P);
+    }
+    if (u + stages * step < n_units) {  // unit u + stages * step takes this stage next
+      __syncthreads();  // every thread is done with it
+      if (tid < 32) issue(u + stages * step, s);
+    }
+    if (++s == stages) s = 0, phase ^= 1;
+  }
+}
+
+using ShiftSumKernel = void (*)(const float*, uint32_t, uint32_t, uint32_t, uint32_t, uint32_t,
+                                uint32_t, uint32_t, uint32_t, uint32_t, uint32_t, uint32_t,
+                                uint32_t, int, float4*);
+// the probe's P as a template parameter, any other at run time
+const ShiftSumKernel kShiftSum[2] = {shift_sum_kernel<kProbeTaps>, shift_sum_kernel<0>};
+
 using StagedKernel = void (*)(const unsigned char*, uint32_t, uint32_t, uint32_t, uint32_t,
                               uint32_t, uint32_t, uint32_t, uint32_t, uint32_t, uint32_t,
                               uint32_t, int, int, float4*);
@@ -215,6 +358,10 @@ int configure(int device) {
     err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err != cudaSuccess) return err;
   }
+  for (ShiftSumKernel k : kShiftSum) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err != cudaSuccess) return err;
+  }
   g_ready[device].store(1, std::memory_order_release);
   return cudaSuccess;
 }
@@ -226,41 +373,6 @@ int make_current(int device) {
   if (err != cudaSuccess) return err;
   if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return err;
   return configure(device);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__global__ void __launch_bounds__(kThreads)
-    shift_sum_kernel(const float* __restrict__ x, int64_t rows_out, int W, int B, int P,
-                     float* __restrict__ out) {
-  extern __shared__ __align__(16) float tile[];
-  const int halo = P - 1;
-  // the source offset comes from the block index at run time
-  const int64_t block_row0 = static_cast<int64_t>(blockIdx.y) * B;
-  const int64_t row0 = block_row0 + static_cast<int64_t>(blockIdx.x) * kSubRows;
-  int64_t block_end = block_row0 + B;
-  if (block_end > rows_out) block_end = rows_out;
-  if (row0 >= block_end) return;
-  const int rows = static_cast<int>(block_end - row0 < kSubRows ? block_end - row0 : kSubRows);
-  const int n_vec = (rows + halo) * (W / 4);
-  const float* src = x + row0 * W;
-  const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
-  for (int v = threadIdx.x; v < n_vec; v += kThreads) {
-    cp_async16(dst + v * 16, src + static_cast<int64_t>(v) * 4);
-  }
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  asm volatile("cp.async.wait_group 0;" ::: "memory");
-  __syncthreads();  // the copies of every thread have landed
-
-  float* o = out + row0 * W;
-  for (int idx = threadIdx.x; idx < rows * W; idx += kThreads) {
-    float a = tile[idx];
-    for (int p = 1; p < P; ++p) a = a + tile[idx + p * W];
-    o[idx] = a;
-  }
 }
 
 }  // namespace
@@ -303,30 +415,44 @@ extern "C" int tpusdr_staging(int op, const void* x, int64_t n_out, int64_t blk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory one K8 block needs, in bytes: a sub-tile and its halo.
-extern "C" int64_t tpusdr_staging_probe_smem(int W, int halo) {
-  return static_cast<int64_t>(kSubRows + halo) * W * sizeof(float);
+// Dynamic shared memory of one K8 block, in bytes: `stages` stages, each
+// the window of the longest run (ceil(rows_out / runs) + P-1 rows of `tile`
+// floats) rounded up to 128 bytes, and one 8-byte mbarrier a stage.
+extern "C" int64_t tpusdr_shift_sum_smem(int64_t rows_out, int P, int64_t runs, int tile,
+                                         int stages) {
+  const int64_t rows = (rows_out + runs - 1) / runs + P - 1;
+  const int64_t stage = (rows * tile * 4 + 127) / 128 * 128;
+  return static_cast<int64_t>(stages) * (stage + 8);
 }
 
-// K8 (op 2 only).  x holds rows_out + P-1 rows of W floats (W a multiple
-// of 4, 16-byte aligned); out holds rows_out rows.  B is the rows of one
-// probe block.  Launches on `stream`; returns the cudaError_t.
-extern "C" int tpusdr_staging_probe(int op, const void* x, int64_t rows_out,
-                                    int W, int B, int P, void* out, int device,
-                                    void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+// K8 by a plan (staging_probes.shift_sum_plan).  x holds rows_out + P-1
+// rows of W floats (W a multiple of 4, x 16-byte aligned, under 4 GB); out
+// holds rows_out rows.  The plan gives 1 <= runs <= rows_out, `tile` a
+// multiple of 4, blocks >= 1, stages >= 1, groups >= 1 with tile / 4 *
+// groups <= 256 threads.  Launches on `stream`; returns the cudaError_t of
+// the launch.
+extern "C" int tpusdr_shift_sum(const void* x, int64_t rows_out, int W, int P, int blocks,
+                                int64_t runs, int tile, int stages, int groups, void* out,
+                                int device, void* stream) {
   if (rows_out <= 0) return cudaSuccess;
-  if (op != 2) return cudaErrorInvalidValue;
-  const int64_t smem = tpusdr_staging_probe_smem(W, P - 1);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(shift_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+  if (P < 1 || W < 4 || W % 4 || tile < 4 || tile % 4 || runs < 1 || runs > rows_out ||
+      blocks < 1 || stages < 1 || groups < 1 || tile / 4 * groups > kThreads) {
+    return cudaErrorInvalidValue;
   }
-  const dim3 grid(static_cast<unsigned>((B + kSubRows - 1) / kSubRows),
-                  static_cast<unsigned>((rows_out + B - 1) / B));
-  shift_sum_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), rows_out, W, B, P, static_cast<float*>(out));
+  int err = make_current(device);
+  if (err != cudaSuccess) return err;
+  const uint32_t R = static_cast<uint32_t>(rows_out / runs);
+  const uint32_t extra = static_cast<uint32_t>(rows_out % runs);
+  const uint32_t n_ct = static_cast<uint32_t>((W + tile - 1) / tile);
+  uint32_t magic = 0, shift = 0;
+  if (n_ct > 1) div_magic(n_ct, &magic, &shift);
+  const int64_t smem = tpusdr_shift_sum_smem(rows_out, P, runs, tile, stages);
+  const ShiftSumKernel k = kShiftSum[P == kProbeTaps ? 0 : 1];
+  k<<<static_cast<unsigned>(blocks), dim3(static_cast<unsigned>(tile / 4), static_cast<unsigned>(groups)),
+      static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<uint32_t>(W), static_cast<uint32_t>(P), R, extra,
+      static_cast<uint32_t>(runs) * n_ct, n_ct, magic, shift, static_cast<uint32_t>(tile),
+      (R + groups) / groups, (R + groups - 1) / groups, static_cast<uint32_t>(smem / stages - 8),
+      stages, static_cast<float4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,9 +17,13 @@ memory and writes from it:
 K6 and K7 stage what the TPU stages, the windows one after another (K7:
 each probe block's output and its halo of P-1 rows, once), cut into one
 span a block of a persistent grid, each span walked in pieces through a
-ring of shared-memory stages by bulk copies (``staging_plan``).  A CUDA
-tensor launches the kernel; a CPU tensor takes the plain version.  All
-three are exact: the kernels add in the plain versions' order.
+ring of shared-memory stages by bulk copies (``staging_plan``).  K8 cuts
+the output rows into runs of nearly equal length on a persistent grid,
+stages each run's window (its rows and the P-1 after them) by bulk copies
+into a ring, and sums it by 16-byte reads at every row offset
+(``shift_sum_plan``).  A CUDA tensor launches the kernel; a CPU tensor
+takes the plain version.  All three are exact: the kernels add in the
+plain versions' order.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from tpusdr_torch.kernels.copy_floor import sm_count
@@ -39,6 +44,8 @@ PIECE_BYTES = 8192  # the largest piece: a span is cut into the fewest equal pie
 BAR_BYTES = 8  # one mbarrier a stage
 GROUPS = (1, 2, 4, 8)  # groups of a block's 8 warps that take the pieces in turn
 MAX_BYTES = 1 << 32  # the kernels' byte offsets are 32-bit
+MAX_TILE = 1024  # floats of a K8 column tile: a float4 column a thread, 256 threads
+MAX_THREADS = 256  # threads of a K8 block
 
 
 class StagingPlan(NamedTuple):
@@ -206,29 +213,129 @@ def staged_window_double(x: torch.Tensor, block_rows: int = 1024, taps: int = 11
 staged_window_double.launches = 0
 
 
-def _launch_k8(x: torch.Tensor, rows_out: int, P: int) -> torch.Tensor:
+class ShiftSumPlan(NamedTuple):
+    """How one K8 launch is cut: ``blocks`` blocks of a persistent grid,
+    the output rows in ``runs`` runs (of R or R+1 rows), the columns in
+    tiles of ``tile`` floats, a ring of ``stages`` windows a block and
+    ``groups`` groups of threads that each sum a slice of a run's rows."""
+
+    blocks: int
+    runs: int
+    tile: int
+    stages: int
+    groups: int
+
+
+def shift_sum_window_bytes(rows_out: int, P: int, plan: ShiftSumPlan) -> int:
+    """Bytes of one stage: the longest run's window (its rows and the P-1
+    after them, of one tile) rounded up to 128."""
+    return cdiv((cdiv(rows_out, plan.runs) + P - 1) * plan.tile * 4, UNIT) * UNIT
+
+
+def shift_sum_smem(rows_out: int, P: int, plan: ShiftSumPlan) -> int:
+    """Dynamic shared memory of one K8 block (csrc/staging_probes.cu,
+    ``tpusdr_shift_sum_smem``): the ring and a barrier a stage."""
+    return plan.stages * (shift_sum_window_bytes(rows_out, P, plan) + BAR_BYTES)
+
+
+def shift_sum_staged(rows_out: int, W: int, P: int, plan: ShiftSumPlan) -> tuple[int, int]:
+    """(bytes all blocks stage, bytes the busiest block stages): unit u
+    (run u // tiles, tile u % tiles) stages its run's rows and the P-1 after
+    them, of its tile's columns, and block b takes units b, b + blocks, ..."""
+    n_ct = cdiv(W, plan.tile)
+    u = np.arange(plan.runs * n_ct, dtype=np.int64)
+    r, t = u // n_ct, u % n_ct
+    rows = rows_out // plan.runs + (r < rows_out % plan.runs) + P - 1
+    cols = np.minimum(plan.tile, W - t * plan.tile)
+    per_block = np.bincount(u % plan.blocks, weights=rows * cols * 4, minlength=plan.blocks)
+    return int(per_block.sum()), int(per_block.max())
+
+
+def shift_sum_plan(rows_out: int, W: int, P: int, sms: int = SM_COUNT, *, run_rows: int | None = None,
+                   groups: int | None = None) -> ShiftSumPlan:
+    """The plan of a K8 launch that writes ``rows_out`` rows of ``W``
+    floats from ``rows_out + P-1``.
+
+    Column tiles: the fewest of at most 1024 floats (a float4 column a
+    thread) whose one-row windows fit two stages, cut nearly equal in
+    whole float4s.  Runs: as long as fits, so that the busiest SM stages
+    the fewest bytes (each run stages P-1 rows more than it writes): one
+    unit (a run of a tile) a block on ``sms`` blocks where its window fits
+    the shared memory, else the fewest units a block whose windows fit a
+    ring of two, the runs then shortened to fill every block's last turn,
+    and the ring as deep as a block's units, up to what fits.  ``run_rows``
+    forces the run length instead.  Threads: a float4 column each and
+    ``groups`` groups over a run's rows, by default one row a thread, up
+    to 256 threads (more threads won at every shape timed on an H100).
+    Raises where P rows of 4 floats do not fit two stages."""
+    rows_out, W, P, sms = max(1, int(rows_out)), int(W), int(P), int(sms)
+    if groups is not None and groups < 1:
+        raise ValueError(f"staged_shift_sum: groups={groups} must be positive")
+    whole = (SMEM_LIMIT - BAR_BYTES) // UNIT * UNIT  # a stage alone
+    half = (SMEM_LIMIT // 2 - BAR_BYTES) // UNIT * UNIT  # a stage of a ring of two
+    widest = min(MAX_TILE, half // (4 * P) // 4 * 4)
+    if widest < 4:
+        raise ValueError(f"staged_shift_sum: P={P} rows do not fit two stages of shared memory")
+    n_ct = cdiv(W, widest)
+    tile = 4 * cdiv(W // 4, n_ct)
+
+    def fitting(stage_bytes: int) -> int:  # the longest run whose window fits stage_bytes
+        return stage_bytes // (4 * tile) - (P - 1)
+
+    if run_rows is not None:
+        runs = cdiv(rows_out, max(1, min(int(run_rows), fitting(whole))))
+    else:
+        runs = max(1, min(rows_out, sms // n_ct))
+        if n_ct > sms or cdiv(rows_out, runs) > fitting(whole):
+            per_block = cdiv(cdiv(rows_out, fitting(half)) * n_ct, sms)
+            runs = max(1, min(rows_out, sms * per_block // n_ct))
+    units = runs * n_ct
+    blocks = min(sms, units)
+    plan = ShiftSumPlan(blocks, runs, tile, 1, 1)
+    room = SMEM_LIMIT // (shift_sum_window_bytes(rows_out, P, plan) + BAR_BYTES)
+    stages = min(cdiv(units, blocks), room)
+    longest, per_row = cdiv(rows_out, runs), max(1, MAX_THREADS // (tile // 4))
+    groups = min(groups or longest, per_row)
+    return plan._replace(stages=stages, groups=groups)
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_sum_rule(rows_out: int, W: int, P: int, device_index: int) -> ShiftSumPlan:
+    """The rule's plan for a K8 shape on a card, worked out once."""
+    return shift_sum_plan(rows_out, W, P, sm_count(device_index))
+
+
+def launch_shift_sum(x: torch.Tensor, P: int, plan: ShiftSumPlan) -> torch.Tensor:
+    """One K8 launch by ``plan`` on a checked CUDA tensor (no count: the
+    wrapper counts; the probe's plan sweep calls this directly)."""
     from tpusdr_torch.kernels.build import library
 
-    lib = library()
     W = x.shape[1]
-    smem = lib.tpusdr_staging_probe_smem(W, P - 1)
-    dev, stream = launch_target(x, smem, f"staged_shift_sum (W={W}, P={P})")
+    rows_out = x.shape[0] - (P - 1)
+    dev, stream = launch_target(x, shift_sum_smem(rows_out, P, plan), f"staged_shift_sum (W={W}, P={P}, {plan})")
     x = x.contiguous()
     if x.data_ptr() % 16:
         raise ValueError("staged_shift_sum: x must be aligned to 16 bytes")
     out = torch.empty((rows_out, W), dtype=torch.float32, device=x.device)
-    err = lib.tpusdr_staging_probe(2, x.data_ptr(), rows_out, W, rows_out, P, out.data_ptr(), dev, stream)
+    err = library().tpusdr_shift_sum(
+        x.data_ptr(), rows_out, W, P, plan.blocks, plan.runs, plan.tile, plan.stages, plan.groups,
+        out.data_ptr(), dev, stream,
+    )
     check_launch(err, "staged_shift_sum")
     return out
 
 
 def staged_shift_sum(x: torch.Tensor, taps: int = 11) -> torch.Tensor:
-    """``sum_{p<taps} x[p : p + B]`` for x of B + taps-1 rows."""
-    rows = _check(x, "staged_shift_sum", taps - 1)
+    """``sum_{p<taps} x[p : p + B]`` for x of B + taps-1 rows, added in
+    that order."""
     if taps < 1:
         raise ValueError("staged_shift_sum: taps must be positive")
+    rows = _check(x, "staged_shift_sum", taps - 1)
+    if x.numel() * 4 >= MAX_BYTES:
+        raise ValueError(f"staged_shift_sum: x of {x.numel() * 4} B; the kernel's offsets take under {MAX_BYTES}")
     if rows and on_cuda(x):
-        out = _launch_k8(x, rows, int(taps))
+        index = x.device.index if x.device.index is not None else torch.cuda.current_device()
+        out = launch_shift_sum(x, int(taps), _shift_sum_rule(rows, x.shape[1], int(taps), index))
         staged_shift_sum.launches += 1
         return out
     return staged_shift_sum_plain(x, taps)

@@ -66,7 +66,21 @@ Phases (each prints lines; any failure exits non-zero):
   8. the digital-voice app ``tpusdr_torch.apps.digital`` on its synthetic
      source (1 Msps, 8 ticks of 1,048,560 samples): the 500 Hz line must
      dominate the audio, which must match the CPU run;
-  9. every phase 2 row's bound at K5's best rate in this run (the floor
+  9. the FM channel bank, fm_channel_bank(20.48 Msps, 64 channels, 16 kHz),
+     the JAX package's config 4, on 16 ticks of 2,096,640 samples of two FM
+     stations (700 Hz on channel 2, 1,200 Hz on channel 61, 75 kHz
+     deviation): both must decode at SNR > 30 dB over the second half with
+     cross-talk under a tenth, the stations' audio must match the CPU path
+     on the first 2 ticks and the channelizer's output its CPU output; no
+     kernel may launch (the bank's stages are plain ops, and a batch must
+     not reach a single-stream kernel).  Printed: chain Msps on CUDA
+     events, RunStats Msps through a StreamRunner, one tick under the
+     profiler (launches, device time), its device time on CUDA events and
+     so its busy share, and its stages' device times on CUDA events and
+     launches (branch filter, FFT, discriminator, IIR, resampler).  Then the
+     channels app on the card at its defaults (16 channels, 5.12 Msps,
+     2 s) writing channels 2 and 13, whose WAVs must decode;
+ 10. every phase 2 row's bound at K5's best rate in this run (the floor
      probe's ceiling) beside its bound at peak, a JSON line of the kernels,
      the card line, and the result line.
 
@@ -92,6 +106,7 @@ OUT_DIR = ROOT / "build"
 KERNEL_TOL = 1e-5  # max |kernel - plain| / max |plain|: fp32 both, sum order differs
 AUDIO_TOL_DB = -60.0  # chain audio error energy against the reference path
 SNR_MIN_DB = 60.0
+BANK_SNR_MIN_DB = 30.0  # a station in the channel bank (tests/test_models_e2e.py's bar)
 TONE_AMP = 0.375 * 0.905  # deviation/channel width x de-emphasis gain at 1 kHz
 AM_TONE_AMP = 0.25  # carrier 0.5 x depth 0.5, the DC block removes the carrier
 TICK = 1_280_000
@@ -112,9 +127,9 @@ def err_db(ref: np.ndarray, got: np.ndarray) -> float:
     return float(10 * np.log10(np.sum((ref - got) ** 2) / np.sum(ref**2)))
 
 
-def tone_fit(x: np.ndarray, fs: float, f: float = 1000.0) -> tuple[float, float]:
-    """Amplitude and SNR (dB) of a tone at f, after the first third."""
-    x = x[len(x) // 3 :].astype(np.float64)
+def tone_fit(x: np.ndarray, fs: float, f: float = 1000.0, skip: int = 3) -> tuple[float, float]:
+    """Amplitude and SNR (dB) of a tone at f, after the first 1/skip."""
+    x = x[len(x) // skip :].astype(np.float64)
     t = np.arange(len(x)) / fs
     b = np.stack([np.sin(2 * np.pi * f * t), np.cos(2 * np.pi * f * t)], 1)
     c, *_ = np.linalg.lstsq(b, x, rcond=None)
@@ -1040,6 +1055,155 @@ def digital_phase(torch, card, dev, kernels_used: dict) -> dict:
     return run
 
 
+def bank_signal(torch, dev, n: int, fs: float, m: int, deviation: float):
+    """The channels app's two stations (``apps/channels.py``,
+    ``two_stations``) as one continuous capture of n samples, made on the
+    card in float64: 700 Hz on channel 2 and 1,200 Hz on channel M-3."""
+    t = torch.arange(n, dtype=torch.float64, device=dev) / fs
+    z = torch.zeros(n, dtype=torch.complex128, device=dev)
+    for k, fa in ((2, 700.0), (m - 3, 1200.0)):
+        audio = torch.sin(2 * np.pi * fa * t)
+        ph = 2 * np.pi * (k * fs / m) * t + 2 * np.pi * deviation * torch.cumsum(audio, 0) / fs
+        z += 0.5 * torch.polar(torch.ones_like(ph), ph)
+    return z.to(torch.complex64)
+
+
+def bank_phase(torch, card, dev) -> dict:
+    """Phase 9: fm_channel_bank(20.48 Msps, 64 channels, 16 kHz) on ticks of
+    2,096,640 samples, and the channels app at its defaults."""
+    from tpusdr_torch import kernels
+    from tpusdr_torch.graph.runner import StreamRunner
+    from tpusdr_torch.io.sinks import CollectSink
+    from tpusdr_torch.models import multichannel
+    from tpusdr_torch.ops import channelizer as chanops
+
+    fs, m, stations = 20.48e6, 64, ((2, 700.0), (61, 1200.0))
+    chain, info = multichannel.fm_channel_bank(fs, m, 16000.0)
+    cpu_chain = copy.deepcopy(chain)
+    chain.to(dev)
+    tick = chain.granule * ((1 << 21) // chain.granule)
+    check((chain.granule, tick) == (1280, 2_096_640), f"bank: granule {chain.granule}, tick {tick}")
+    deviation = min(75e3, info["channel_rate"] / 4)
+    ticks = bank_signal(torch, dev, N_TICKS * tick, fs, m, deviation).reshape(N_TICKS, tick)
+    rows = [k for k, _ in stations]
+
+    def run(chain, ticks, device):
+        state, outs = chain.init_state(device=device), []
+        for x in ticks:
+            state, y = chain.apply(state, x)
+            outs.append(y)
+        return torch.cat(outs, dim=-1).cpu().numpy()
+
+    kernels.reset_launch_counts()
+    audio = run(chain, ticks, dev)
+    counts = path_counts(torch)
+    check(audio.shape == (m, N_TICKS * tick // 1280), f"bank: audio shape {audio.shape}")
+    check(bool(np.isfinite(audio).all()), "bank: audio not finite")
+    run_ = {"tick": tick, "launches": counts}
+    for k, fa in stations:
+        run_[f"ch{k}_amp"], run_[f"ch{k}_snr_db"] = tone_fit(audio[k], info["audio_rate"], fa, skip=2)
+    a_cross, _ = tone_fit(audio[61], info["audio_rate"], 700.0, skip=2)
+    run_["cross_amp"] = a_cross
+    # the CPU path over the first 2 ticks: the channelizer's output in every
+    # channel, and the audio of the stations' channels (a channel with no
+    # station holds only the prototype's leakage, whose phase is rounding:
+    # its audio differs by rounding between any two float32 paths)
+    head = ticks[:2].cpu()
+    ref = run(cpu_chain, head, "cpu")
+    run_["gpu_vs_cpu_db"] = err_db(ref[rows], audio[rows, : ref.shape[-1]])
+    run_["gpu_vs_cpu_all_channels_db"] = err_db(ref, audio[:, : ref.shape[-1]])
+    chan, cpu_chan = chain.get_block("channelizer"), cpu_chain.get_block("channelizer")
+    _, y_gpu = chan.apply(chan.init_state(device=dev), ticks[0])
+    _, y_cpu = cpu_chan.apply(cpu_chan.init_state(), head[0])
+    run_["channelizer_rel_err"] = ((y_gpu.cpu() - y_cpu).abs().max() / y_cpu.abs().max()).item()
+
+    # chain Msps on CUDA events over the 16 ticks, from a fresh state
+    state = chain.init_state(device=dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(N_TICKS):
+        state, _ = chain.apply(state, ticks[i])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    run_.update(msps=N_TICKS * tick / (ms * 1e3), ms_per_tick=ms / N_TICKS)
+
+    # RunStats through a StreamRunner from host ticks
+    host = [x.numpy() for x in ticks.cpu()]
+    sink = CollectSink()
+    kernels.reset_launch_counts()
+    _, stats = StreamRunner(chain, device=dev).run(iter(host), sink)
+    run_["runner_launches"] = path_counts(torch)
+    run_["runstats_msps_in"] = stats.msps_in
+    run_["runner_vs_chain_db"] = err_db(audio[rows], sink.result()[rows])
+
+    # one warm tick under the profiler (launches, device time), and its
+    # device time on CUDA events behind a spin kernel, whole and stage by
+    # stage: the busy share and the split come from the events, because a
+    # late profiler session in this process can miss records (the stages'
+    # launches below, from the profiler, may count short)
+    from tpusdr_torch.utils.profiling import device_ms
+
+    state = chain.init_state(device=dev)
+    for x in ticks[:2]:
+        state, _ = chain.apply(state, x)
+    tick_fn = lambda: chain.apply(state, ticks[2])  # noqa: E731
+    run_.update(profile_tick(torch, tick_fn, tick))
+    run_["tick_device_us_events"] = device_ms(tick_fn) * 1e3
+    run_["busy_share"] = run_["tick_device_us_events"] / (run_["ms_per_tick"] * 1e3)
+    plan = chanops.make_plan(chan.taps.cpu().numpy(), m, tick)
+    h_cm, phase = chanops.plan_tensors(plan, dev)
+    _, v = chanops.branch_filter(state["channelizer"], ticks[2], plan, h_cm)
+    y = chanops.branch_dft(v, phase)
+    stages = {"branch_filter": lambda: chanops.branch_filter(state["channelizer"], ticks[2], plan, h_cm),
+              "fft": lambda: chanops.branch_dft(v, phase)}
+    x_stage = y
+    for name, label in (("demod", "discriminator"), ("deemph", "iir"), ("audio", "resampler")):
+        blk, carry, x_in = chain.get_block(name), state[name], x_stage
+        stages[label] = (lambda blk=blk, carry=carry, x_in=x_in: blk.apply(carry, x_in))
+        _, x_stage = blk.apply(carry, x_in)
+    run_["stage_device_us"] = {k: device_ms(f) * 1e3 for k, f in stages.items()}
+    run_["stage_launches"] = {k: profile_tick(torch, f, tick)["tick_launches"] for k, f in stages.items()}
+    print(f"phase 9 FM channel bank 20.48 Msps, 64 channels [{card}]: " + json.dumps(run_), flush=True)
+
+    check_path(run_["launches"], "bank", {w: 0 for w in run_["launches"]})
+    check_path(run_["runner_launches"], "bank runner", {w: 0 for w in run_["runner_launches"]})
+    for k, _ in stations:
+        check(run_[f"ch{k}_snr_db"] > BANK_SNR_MIN_DB, f"bank: channel {k} SNR {run_[f'ch{k}_snr_db']:.1f} dB")
+    check(a_cross < 0.1 * run_["ch61_amp"], f"bank: cross-talk {a_cross:.4f} against {run_['ch61_amp']:.4f}")
+    check(run_["gpu_vs_cpu_db"] <= AUDIO_TOL_DB, f"bank: GPU vs CPU {run_['gpu_vs_cpu_db']:.1f} dB")
+    check(run_["channelizer_rel_err"] <= KERNEL_TOL, f"bank: channelizer GPU vs CPU {run_['channelizer_rel_err']:.3g}")
+    check(run_["runner_vs_chain_db"] <= AUDIO_TOL_DB, f"bank: runner vs chain {run_['runner_vs_chain_db']:.1f} dB")
+    return {"bank": run_, "app": channels_app_phase(torch, card, dev)}
+
+
+def channels_app_phase(torch, card, dev) -> dict:
+    """The channels app on the card at its defaults (16 channels, 5.12
+    Msps, 2 s) writing channels 2 and 13; both WAVs must decode."""
+    from tpusdr_torch import kernels
+    from tpusdr_torch.apps import channels
+
+    out_dir = OUT_DIR / "channels"
+    kernels.reset_launch_counts()
+    rc = channels.main(["--device", str(dev), "--write", "2,13", "--out-dir", str(out_dir)])
+    counts = path_counts(torch)
+    check(rc == 0, f"channels app exited {rc}")
+    check_path(counts, "channels app", {w: 0 for w in counts})
+    run = {"launches": counts}
+    for k, fa, other in ((2, 700.0, 1200.0), (13, 1200.0, 700.0)):
+        x, fs = read_wav(out_dir / f"ch{k:03d}.wav")
+        amp, snr = tone_fit(x, fs, fa, skip=2)
+        cross, _ = tone_fit(x, fs, other, skip=2)
+        run[f"ch{k}"] = {"samples": len(x), "wav_rate": fs, "amp": amp, "snr_db": snr, "cross_amp": cross}
+    print(f"phase 9 channels app 5.12 Msps, 16 channels [{card}]: " + json.dumps(run), flush=True)
+    for k in (2, 13):
+        r = run[f"ch{k}"]
+        check(r["snr_db"] > BANK_SNR_MIN_DB, f"channels app: channel {k} SNR {r['snr_db']:.1f} dB")
+        check(r["cross_amp"] < 0.1 * r["amp"], f"channels app: channel {k} cross-talk {r['cross_amp']:.4f}")
+    return run
+
+
 def main() -> int:
     import torch
 
@@ -1076,9 +1240,10 @@ def main() -> int:
         "staging_probes": staging_phase(torch, card, dev, used),
         "graph": graph_phase(torch, card, dev, wbfm_audio, used),  # phase 7
         "digital": digital_phase(torch, card, dev, used),  # phase 8
+        "channel_bank": bank_phase(torch, card, dev),  # phase 9
     }
 
-    # -- phase 9: report --------------------------------------------------------
+    # -- phase 10: report -------------------------------------------------------
     # launches: the count of the main path that runs the kernel at the row's
     # shape (K1 WBFM default, the AM CLI and the digital app; K2 WBFM fused,
     # K3 NBFM, K4 the JSON graph and a stage of the AM K4 runner, K5-K8 the
@@ -1135,7 +1300,7 @@ def main() -> int:
               "bound_k5_us": r["bytes"] / (k5_gbps * 1e3), "bound_by": r["bound_by"]}
         for key, r in cmp.items()
     }
-    print(f"phase 9 bounds at K5's rate ({k5_gbps:.1f} GB/s in): " + json.dumps(report["bounds_at_k5_rate"]), flush=True)
+    print(f"phase 10 bounds at K5's rate ({k5_gbps:.1f} GB/s in): " + json.dumps(report["bounds_at_k5_rate"]), flush=True)
     report.update(kernels=kern, compare=cmp, main=main_runs)
     (OUT_DIR / "chip_smoke_last.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kern}), flush=True)

@@ -33,7 +33,8 @@ from tpusdr_torch.kernels import fir_banded as tfb
 from tpusdr_torch.kernels import fir_poly as tfp
 from tpusdr_torch.kernels import fm_fused as tfm
 from tpusdr_torch.kernels import staging_probes as tsp
-from tpusdr_torch.models import receiver
+from tpusdr_torch.models import multichannel, receiver
+from tpusdr_torch.ops import channelizer as tchan
 from tpusdr_torch.ops import osc
 
 pytestmark = pytest.mark.cuda
@@ -597,3 +598,45 @@ def test_checkpoint_round_trip_on_the_card(cuda, rng, tmp_path):
     for x, ref in zip(ticks[2:], want[2:]):
         resumed, y = chain.apply(resumed, x)
         assert torch.equal(y, ref)
+
+
+@pytest.mark.parametrize("m", [8, 16, 64])
+def test_channelizer_on_the_card_matches_cpu(cuda, rng, m):
+    """The channelizer op over two ticks: outputs within 1e-5 of peak of
+    the CPU's, carries equal."""
+    plan = tchan.make_plan(tchan.design_prototype(m), m, m * 4096)
+    gs, cs = tchan.channelize_init(plan, device=cuda), tchan.channelize_init(plan)
+    for _ in range(2):
+        z = crandn(rng, "cpu", m * 4096)
+        gs, gy = tchan.channelize_apply(gs, z.to(cuda), plan, channel_major=True)
+        cs, cy = tchan.channelize_apply(cs, z, plan, channel_major=True)
+        assert gy.shape == (m, 4096)
+        close_to_peak(gy, cy)
+        assert torch.equal(gs.cpu(), cs)
+
+
+def test_channel_bank_on_the_card_matches_cpu(cuda):
+    """fm_channel_bank(20.48 Msps, 64 channels) over 2 ticks of 2,096,640
+    samples of two FM stations (channels 2 and 61): the stations' audio
+    within -60 dB of the CPU path, and no kernel launched (a batch must
+    not reach a single-stream kernel).  Channels with no station hold only
+    the prototype's leakage, whose phase is rounding, so their audio is
+    not compared."""
+    fs, m = 20.48e6, 64
+    cpu_chain, info = multichannel.fm_channel_bank(fs, m, 16000.0)
+    gpu_chain = copy.deepcopy(cpu_chain).to(cuda)
+    tick = cpu_chain.granule * ((1 << 21) // cpu_chain.granule)
+    assert tick == 2_096_640
+    t = np.arange(2 * tick) / fs
+    z = sum(0.5 * np.exp(1j * (2 * np.pi * k * fs / m * t + 2 * np.pi * 75e3 * np.cumsum(np.sin(2 * np.pi * fa * t)) / fs))
+            for k, fa in ((2, 700.0), (61, 1200.0)))
+    ticks = z.astype(np.complex64).reshape(2, tick)
+    gs, cs = gpu_chain.init_state(device=cuda), cpu_chain.init_state()
+    kernels.reset_launch_counts()
+    for blk in ticks:
+        gs, gy = gpu_chain.apply(gs, torch.from_numpy(blk).to(cuda))
+        cs, cy = cpu_chain.apply(cs, torch.from_numpy(blk))
+        assert gy.shape == cy.shape == (m, tick // 1280)
+        assert err_db(cy.numpy()[[2, 61]], gy.cpu().numpy()[[2, 61]]) <= -60.0
+    torch.cuda.synchronize()
+    assert not any(w.launches for w in kernels.WRAPPERS)

@@ -4,7 +4,7 @@ Int16ToFloat :99, IqToComplex :111, Fir :168, Multiply :287,
 FreqShift :298, CosineMix :335, FreqShiftFir :372, FusedFmDemod :526, QuadFmDemod :774,
 QuadAmDemod and the "QuadDemod" node :796-819, Magnitude :822,
 AddConst :832, AddConstToVectorLength :846, DcBlock :857,
-SampleCountMonitor :886, Deemphasis :901, Resampler :953).
+SampleCountMonitor :886, Deemphasis :901, Resampler :953, Channelizer :1006).
 
 Complex streams are complex64 tensors; NCO phases are Python ints (uint32
 values) in the carry.  Taps are registered buffers.
@@ -29,6 +29,7 @@ from tpusdr_torch.graph.registry import register_block
 from tpusdr_torch.kernels import fir_banded
 from tpusdr_torch.kernels.fir_poly import fir_decim
 from tpusdr_torch.kernels.fm_fused import fused_fm_demod
+from tpusdr_torch.ops import channelizer as chanops
 from tpusdr_torch.ops import convert, cplx, demod, fir, iir, mix, osc
 from tpusdr_torch.ops import resample as resops
 from tpusdr_torch.utils.numerics import cdiv
@@ -695,7 +696,7 @@ class Resampler(Block):
         self.register_buffer("taps", torch.from_numpy(np.asarray(taps, np.float32)))
         self.history = cdiv(len(taps), self.up) - 1
         self._plans: dict[int, resops.ResamplerPlan] = {}
-        self._frame_taps: dict[tuple[int, str], torch.Tensor] = {}
+        self._taps_on: dict[tuple[int, str], torch.Tensor] = {}  # plan_taps by (n, device)
 
     def _plan(self, n: int) -> resops.ResamplerPlan:
         if n not in self._plans:
@@ -709,7 +710,7 @@ class Resampler(Block):
     def _params_updated(self, names):
         if "taps" in names:
             self._plans.clear()
-            self._frame_taps.clear()
+            self._taps_on.clear()
             self.history = cdiv(self.taps.shape[-1], self.up) - 1
 
     def apply(self, state, x):
@@ -717,6 +718,54 @@ class Resampler(Block):
         n = x.shape[-1]
         plan = self._plan(n)
         key = (n, str(x.device))
-        if key not in self._frame_taps:
-            self._frame_taps[key] = torch.from_numpy(plan.frame_taps).to(x.device)
-        return resops.resample_apply(state, x, plan, self._frame_taps[key])
+        if key not in self._taps_on:
+            self._taps_on[key] = resops.plan_taps(plan, x.device)
+        return resops.resample_apply(state, x, plan, self._taps_on[key])
+
+
+@register_block("Channelizer")
+class Channelizer(Block):
+    """M-channel maximally decimated polyphase filterbank
+    (``ops/channelizer.py``): (..., N) -> channel-major (..., M, N/M), so
+    the blocks after it see time on the last axis and the channels as a
+    batch axis.
+
+    ``history`` and the carry are both ``ceil(T/M)*M - 1`` samples, the
+    taps padded to a multiple of M.  (The JAX block sets ``history`` to
+    T - 1, short of its own carry when M does not divide T.)"""
+
+    adds_channel_axis = True
+
+    def __init__(self, num_channels: int, taps=None, taps_per_channel: int = 12,
+                 db_attenuation: float = -60.0):
+        super().__init__()
+        self.num_channels = int(num_channels)
+        self.down = self.num_channels
+        if taps is None:
+            taps = chanops.design_prototype(self.num_channels, taps_per_channel, db_attenuation)
+        self.register_buffer("taps", torch.from_numpy(np.asarray(taps, np.float32)))
+        self.history = chanops.carry_len(len(taps), self.num_channels)
+        self._plans: dict[int, chanops.ChannelizerPlan] = {}
+        self._consts: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _plan(self, n: int) -> chanops.ChannelizerPlan:
+        if n not in self._plans:
+            self._plans[n] = chanops.make_plan(self.taps.cpu().numpy(), self.num_channels, n)
+        return self._plans[n]
+
+    def init_state(self, batch_shape=(), device=None):
+        return cplx.zeros(tuple(batch_shape) + (self.history,), device)
+
+    def _params_updated(self, names):
+        if "taps" in names:
+            self._plans.clear()
+            self._consts.clear()
+            self.history = chanops.carry_len(self.taps.shape[-1], self.num_channels)
+
+    def apply(self, state, x):
+        _check_carry(self, state.shape[-1], self.history)
+        plan = self._plan(x.shape[-1])
+        key = str(x.device)
+        if key not in self._consts:
+            self._consts[key] = chanops.plan_tensors(plan, x.device)
+        return chanops.channelize_apply(state, x, plan, channel_major=True, consts=self._consts[key])

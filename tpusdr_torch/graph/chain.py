@@ -59,6 +59,12 @@ class Chain(Block):
             hist += Fraction(b.history, 1) / r
             r *= Fraction(b.up, b.down)
         self.history = int(hist.__ceil__())
+
+        # a block that adds a channel axis widens the batch of every block
+        # after it (init_state); the last such block gives the channel count
+        adders = [b for _, b in named if b.adds_channel_axis]
+        self.adds_channel_axis = bool(adders)
+        self.num_channels = adders[-1].num_channels if adders else 1
         if named:
             self.in_dtype = named[0][1].in_dtype
             self.out_dtype = named[-1][1].out_dtype
@@ -95,7 +101,13 @@ class Chain(Block):
         self.update_block_parameters(name, **translate_params(payload))
 
     def init_state(self, batch_shape: Sequence[int] = (), device=None) -> dict:
-        return {name: b.init_state(batch_shape, device) for name, b in self.blocks}
+        state = {}
+        shape = tuple(batch_shape)
+        for name, b in self.blocks:
+            state[name] = b.init_state(shape, device)
+            if b.adds_channel_axis:
+                shape = shape + (b.num_channels,)
+        return state
 
     def apply(self, state: dict, x: torch.Tensor):
         new_state = {}

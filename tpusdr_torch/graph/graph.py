@@ -455,7 +455,21 @@ class Graph(Block):
     # ------------------------------------------------------------------
 
     def init_state(self, batch_shape: Sequence[int] = (), device=None):
-        return {n: b.init_state(batch_shape, device) for n, b in self.nodes.items()}
+        """Every node's carry.  A node's batch shape is the widest of its
+        inputs' (``batch_shape`` where it has none), and a node that adds a
+        channel axis widens it by ``(num_channels,)`` for the nodes it
+        feeds, in topological order along the edges.  (The JAX package's
+        Graph passes one batch shape to every node, so a node after a
+        Channelizer gets a carry without the channel axis.)"""
+        out_shape: dict[str, tuple] = {}
+        state = {}
+        for n in self._topo:
+            b = self.nodes[n]
+            shape = max((out_shape[e.src] for e in self.incoming[n].values()), key=len,
+                        default=tuple(batch_shape))
+            state[n] = b.init_state(shape, device)
+            out_shape[n] = shape + (b.num_channels,) if b.adds_channel_axis else shape
+        return {n: state[n] for n in self.nodes}
 
     def _source_device(self, state: dict, xs) -> torch.device:
         """Where sources make their samples: the input's device, else the

@@ -1,6 +1,6 @@
 """Decimating FIR filtering with Fir.cpp streaming semantics.
 
-Port of tpusdr/ops/fir.py:77-483.
+Port of tpusdr/ops/fir.py:77-499.
 
   * with A available input samples, T taps and decimation D, the number
     of outputs is (A - (T-1)) // D;
@@ -266,3 +266,11 @@ def fir_apply(state, x, taps, decimation: int = 1, mode: FirMode = "auto"):
     y = fir_extended(ext, taps, D, mode)
     T = taps.shape[-1]
     return ext[..., ext.shape[-1] - (T - 1) :].clone(), y
+
+
+def fir_full(x: torch.Tensor, taps: torch.Tensor, decimation: int = 1, mode: FirMode = "auto"):
+    """Offline whole-signal filter from a zero history; a tail short of a
+    multiple of ``decimation`` is dropped."""
+    state = torch.zeros(x.shape[:-1] + (history_len(taps.shape[-1]),), dtype=x.dtype, device=x.device)
+    usable = (x.shape[-1] // decimation) * decimation
+    return fir_apply(state, x[..., :usable], taps, decimation, mode)[1]

@@ -130,28 +130,34 @@ def _resample_real(ext: torch.Tensor, plan: ResamplerPlan, frame_taps: torch.Ten
     return v.transpose(-1, -2).reshape(v.shape[:-2] + (plan.block_out,))
 
 
-def resample_apply(state, x, plan: ResamplerPlan, frame_taps: torch.Tensor | None = None):
+def plan_taps(plan: ResamplerPlan, device=None) -> torch.Tensor:
+    """The taps a step reads, on ``device``: the prototype where up == 1
+    (a decimating FIR), else ``plan.frame_taps``."""
+    return torch.from_numpy(plan.taps if plan.up == 1 and plan.down > 1 else plan.frame_taps).to(device)
+
+
+def resample_apply(state, x, plan: ResamplerPlan, taps: torch.Tensor | None = None):
     """One streaming step of the polyphase resampler (real or complex64).
 
-    ``frame_taps`` is ``plan.frame_taps`` as a tensor on x's device (the
-    Resampler block caches it); built here when not given."""
+    ``taps`` is ``plan_taps(plan, x.device)``; the Resampler block caches
+    it, since a copy from host memory every step would wait for the device
+    each time.  Built here when not given."""
     if x.shape[-1] != plan.block_in:
         raise ValueError(f"expected block of {plan.block_in}, got {x.shape[-1]}")
+    if taps is None:
+        taps = plan_taps(plan, x.device)
     if plan.up == 1 and plan.down > 1:
         from tpusdr_torch.ops import fir
 
-        taps = torch.from_numpy(plan.taps).to(x.device)
         return fir.fir_apply(state, x, taps, plan.down)
-    if frame_taps is None:
-        frame_taps = torch.from_numpy(plan.frame_taps).to(x.device)
     hist = plan.history
     ext = torch.cat([state, x], dim=-1)
     if ext.is_complex():
         y = torch.complex(
-            _resample_real(ext.real.contiguous(), plan, frame_taps),
-            _resample_real(ext.imag.contiguous(), plan, frame_taps),
+            _resample_real(ext.real.contiguous(), plan, taps),
+            _resample_real(ext.imag.contiguous(), plan, taps),
         )
     else:
-        y = _resample_real(ext, plan, frame_taps)
+        y = _resample_real(ext, plan, taps)
     new_state = ext[..., ext.shape[-1] - hist :].clone() if hist > 0 else ext[..., :0]
     return new_state, y

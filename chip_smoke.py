@@ -95,8 +95,28 @@ Phases (each prints lines; any failure exits non-zero):
      kernel) and busy share, the host's launch calls a tick and the device
      records (a graph's kernels), RunStats Msps;
  11. every phase 2 row's bound at K5's best rate in this run (the floor
-     probe's ceiling) beside its bound at peak, a JSON line of the kernels,
-     the card line, and the result line.
+     probe's ceiling) beside its bound at peak, a JSON line of the kernels
+     (with phase 12's shard shapes), the card line, and the result line
+     (printed after phase 12);
+ 12. the sharded streams (``tpusdr_torch.parallel``) on a ``LocalMesh`` on
+     the card, each captured (one CUDA graph a tick) and eager on the same
+     ticks: the WBFM 20 Msps receiver over 8 shards of phase 3's 16 ticks,
+     stagewise and chain-wide (K1 8 times a tick), use_fused=True over 2
+     shards of 8 ticks of 2,560,000 (K2 twice a tick), NBFM 2 Msps fused
+     over 8 shards of phase 4's ticks (K3 8 times, a phase each), the WBFM
+     JSON graph chain-wide over 8 (K4 8 times), and the 64-channel bank
+     over 4 and 5 shards (65 channels, one dead) on phase 9's 16 ticks (no
+     kernel).  Checked: captured equals eager bit for bit, one graph, the
+     launches; the audio within -100 dB of the unsharded chain on the same
+     ticks (phase 3's audio for WBFM; the bank's stations within -60 dB),
+     the tones as in phases 3, 4 and 9 (NBFM: the unsharded run's amplitude,
+     SNR > 45 dB).  Printed: ms a tick, device time and busy share both
+     ways, the unsharded captured tick's, and the sharded over unsharded
+     device time.  Then a ``DistMesh`` over NCCL at world size 1 in this
+     process (a FileStore under build/): one WBFM tick equals a
+     ``LocalMesh(1)``'s bit for bit.  Then K1 (both halos), K2, K3 and K4
+     at the shard shapes those paths launch, against their plain versions,
+     with the plan each rule picks.
 
 Phases 5, 7, 8, 9 and 10 run StreamRunner, which replays one captured CUDA
 graph a tick on the card.  Each path runs with the launch counts set to 0
@@ -172,7 +192,7 @@ def bound(n_bytes: float, n_ops: float) -> dict:
 
 
 def compare(torch, card, name, kernel_fn, plain_fn, counter, n_bytes, n_ops,
-            library_fn=None, library_view=None, timed_fn=None, exact=False):
+            library_fn=None, library_view=None, timed_fn=None, exact=False, phase="phase 2"):
     """Kernel against plain on the same inputs; times in turns
     (plain, kernel, kernel, plain).  ``timed_fn`` replaces ``kernel_fn`` in
     the timed loops (rotating inputs).  ``library_fn`` is one PyTorch call
@@ -207,7 +227,7 @@ def compare(torch, card, name, kernel_fn, plain_fn, counter, n_bytes, n_ops,
         lib = library_view(library_fn())
         res["library_rel_err"] = ((lib - ref).abs().max() / peak).item()
         res["library_ms"] = device_ms(library_fn)
-    print(f"phase 2 {name} [{card}]: " + json.dumps(res), flush=True)
+    print(f"{phase} {name} [{card}]: " + json.dumps(res), flush=True)
     tol = 0.0 if exact else KERNEL_TOL * peak
     check(diff <= tol, f"{name}: kernel vs plain {diff / peak:.3g} of peak")
     if library_fn is not None:
@@ -253,13 +273,14 @@ def check_path(counts: dict, label: str, expected: dict) -> None:
 
 
 def run_chain(torch, chain, ticks, device):
-    """Stream the ticks through the chain; returns the concatenated audio."""
+    """Stream the ticks through the chain; returns the audio joined along
+    its time axis."""
     state = chain.init_state(device=device)
     outs = []
     for x in ticks:
         state, y = chain.apply(state, x)
         outs.append(y)
-    return torch.cat(outs).cpu().numpy()
+    return torch.cat(outs, dim=-1).cpu().numpy()
 
 
 def fm_signal(n: int, fs: float, offset: float, deviation: float, seed: int) -> np.ndarray:
@@ -1264,17 +1285,30 @@ def profile_launches(torch, step) -> dict:
 
 
 def step_timing(torch, dev, block, ticks, capture: bool) -> dict:
-    """The step alone on device-resident ticks: 2 warm ticks (eager, then
-    the capture), then ms a tick on CUDA events over the ticks, the tick's
-    device time on CUDA events behind a spin kernel (``device_ms``) and so
-    the busy share, and one tick's launches under the profiler."""
-    from tpusdr_torch import kernels
+    """The step alone on device-resident ticks (``tick_timing``), eager
+    (``block.apply``) or captured (``CapturedStep``)."""
     from tpusdr_torch.graph.runner import CapturedStep
+
+    step = CapturedStep(block) if capture else block.apply
+    # 10 calls: an eager tick's ~60 launches each are enqueued well inside
+    # the spin kernel, so the events see the card's pace
+    out = tick_timing(torch, step, block.init_state(device=dev), ticks, reps=10)
+    if capture:
+        out["graphs"] = len(step._graphs)
+    return out
+
+
+def tick_timing(torch, step, state, ticks, reps: int) -> dict:
+    """``step(state, x) -> (state, y)`` on device-resident ticks: 2 warm
+    ticks (eager, then the capture), then ms a tick on CUDA events over the
+    ticks, the tick's device time on CUDA events behind a spin kernel
+    (``device_ms`` over ``reps`` calls, which the spin must outlast) and so
+    the busy share, and one tick's launches under the profiler.  Launches
+    made here are not counted for the paths."""
+    from tpusdr_torch import kernels
     from tpusdr_torch.utils.profiling import device_ms
 
     saved = {w: w.launches for w in kernels.WRAPPERS}
-    step = CapturedStep(block) if capture else block.apply
-    state = block.init_state(device=dev)
     for x in ticks[:2]:
         state, _ = step(state, x)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1286,13 +1320,9 @@ def step_timing(torch, dev, block, ticks, capture: bool) -> dict:
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / len(ticks)
     tick_fn = lambda: step(state, ticks[2])  # noqa: E731
-    # 10 calls: an eager tick's ~60 launches each are enqueued well inside
-    # the spin kernel, so the events see the card's pace
-    device_us = device_ms(tick_fn, reps=10) * 1e3
+    device_us = device_ms(tick_fn, reps=reps) * 1e3
     out = {"ms_per_tick": ms, "msps": ticks[0].shape[-1] / (ms * 1e3), "tick_device_us": device_us,
            "busy_share": device_us / (ms * 1e3), **profile_launches(torch, tick_fn)}
-    if capture:
-        out["graphs"] = len(step._graphs)
     for w, n in saved.items():
         w.launches = n
     return out
@@ -1444,6 +1474,259 @@ def captured_phase(torch, card, dev) -> dict:
     return runs
 
 
+SHARD_DB = -100.0  # sharded audio against the unsharded chain's (JAX's bar, tests/test_parallel.py:44-57)
+NBFM_SNR_MIN_DB = 45.0  # NBFM 2 Msps on phase 4's signal: 50.5 dB unsharded on the CPU (its noise sets it)
+
+
+def wbfm_graph_input_spec(taps) -> dict:
+    """Phase 7's WBFM JSON graph without its source and writer: the tick
+    enters the mixer through an exposed port, the resampler's output is the
+    graph's (and the oscillator is on no named queue)."""
+    spec = wbfm_graph_spec(taps, OUT_DIR / "unused.wav", 1)
+    nodes = {k: v for k, v in spec["nodes"].items() if k not in ("src", "wav")}
+    nodes["osc"] = {k: v for k, v in nodes["osc"].items() if k != "commandQueueId"}
+    conns = [c for c in spec["connections"] if c["source"] != "src" and c["sink"] != "wav"]
+    return {"nodes": nodes, "connections": conns,
+            "inputPorts": [{"exposedPort": 0, "mapped": {"node": "mix", "port": 0}}], "outputPort": "rs"}
+
+
+def exact_or_db(ref: np.ndarray, got: np.ndarray) -> float | None:
+    """None where ``got`` equals ``ref`` bit for bit, else ``err_db``."""
+    return None if np.array_equal(ref, got) else err_db(ref, got)
+
+
+def sharded_run(torch, obj, ticks):
+    """The ticks through ``obj.step`` (a TimeShardedStream or a
+    ChannelShardedBank), each output cloned on the step's stream before the
+    next step (a captured step's outputs are its graph's buffers)."""
+    carry, outs = obj.init_carry(), []
+    for x in ticks:
+        carry, y = obj.step(carry, x)
+        outs.append(y.clone())
+    return torch.cat(outs, dim=-1).cpu().numpy()
+
+
+def sharded_phase(torch, card, dev, wbfm_audio, used: dict) -> tuple[dict, dict]:
+    """Phase 12: the sharded streams on one card.  Each configuration runs
+    captured (one CUDA graph a tick on a LocalMesh) and eager on the same
+    ticks; the audio against the unsharded chain's, the tone, the launches
+    a tick and the readings; then a DistMesh over NCCL at world size 1, and
+    each kernel at the shard shapes the paths launch against its plain
+    version.  Returns (runs, kernel comparisons)."""
+    import torch.distributed as dist
+
+    from tpusdr_torch import kernels
+    from tpusdr_torch.graph.chain import Chain
+    from tpusdr_torch.graph.graph import build_graph
+    from tpusdr_torch.kernels import fir_banded, fir_poly, fm_fused
+    from tpusdr_torch.models import multichannel, receiver
+    from tpusdr_torch.ops import osc
+    from tpusdr_torch.parallel import ChannelShardedBank, TimeShardedStream, make_mesh
+    from tpusdr_torch.parallel.mesh import DistMesh, LocalMesh
+
+    t_phase = time.perf_counter()
+    wb = torch.from_numpy(fm_signal(N_TICKS * TICK, 20e6, 2.5e6, 75e3, seed=3)).to(dev)  # phase 3's signal
+    wb_ticks = wb.reshape(N_TICKS, TICK)
+    wb_long = wb.reshape(N_TICKS // 2, 2 * TICK)  # K2's granule: ticks of 2,560,000 over 2 shards
+    nb_chain, _ = receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)
+    nb_chain.to(dev)
+    nb_tick = nb_chain.granule * 160
+    nb_ticks = torch.from_numpy(fm_signal(4 * nb_tick, 2e6, 100e3, 5e3, seed=4)).to(dev).reshape(4, nb_tick)
+    fs_b, m = 20.48e6, 64
+    bank_chain, info = multichannel.fm_channel_bank(fs_b, m, 16000.0)
+    bank_chain.to(dev)
+    bank_tick = 2_096_640
+    bank_ticks = bank_signal(torch, dev, N_TICKS * bank_tick, fs_b, m, min(75e3, info["channel_rate"] / 4))
+    bank_ticks = bank_ticks.reshape(N_TICKS, bank_tick)  # phase 9's signal
+    wb_chain = receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0].to(dev)
+    fused_chain = receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM, use_fused=True)[0].to(dev)
+    graph = build_graph(wbfm_graph_input_spec(wb_chain.get_block("shiftfir").taps.tolist())).to(dev)
+
+    def tss(block, shards, **kw):
+        return lambda capture: TimeShardedStream(block, make_mesh(shards), capture=capture, **kw)
+
+    def bank(shards):
+        chan, demod = bank_chain.blocks[0][1], Chain(bank_chain.blocks[1:])
+        return lambda capture: ChannelShardedBank(chan, demod, make_mesh(shards), capture=capture)
+
+    ref_nb = run_chain(torch, nb_chain, nb_ticks, dev)
+    nb_amp, _ = tone_fit(ref_nb, 48000.0)
+    refs = {"wbfm": (wb_chain, wb_ticks, wbfm_audio),
+            "fused": (fused_chain, wb_long, run_chain(torch, fused_chain, wb_long, dev)),
+            "nbfm": (nb_chain, nb_ticks, ref_nb), "graph": (graph, wb_ticks, run_chain(torch, graph, wb_ticks, dev)),
+            "bank": (bank_chain, bank_ticks, run_chain(torch, bank_chain, bank_ticks, dev))}
+    # (label, make, reference, the path's kernel, its launches a tick)
+    configs = [
+        ("wbfm_stagewise_s8", tss(wb_chain, 8, stagewise=True), "wbfm", "banded_fir", 8),
+        ("wbfm_chainwide_s8", tss(wb_chain, 8, stagewise=False), "wbfm", "banded_fir", 8),
+        ("wbfm_fused_stagewise_s2", tss(fused_chain, 2, stagewise=True), "fused", "banded_fir_prelude", 2),
+        ("nbfm_fused_stagewise_s8", tss(nb_chain, 8), "nbfm", "fused_fm_demod", 8),
+        ("json_graph_chainwide_s8", tss(graph, 8), "graph", "fir_decim", 8),
+        ("bank_s4", bank(4), "bank", None, 0),
+        ("bank_s5", bank(5), "bank", None, 0),
+    ]
+    unsharded_times = {key: step_timing(torch, dev, blk, ticks, True) for key, (blk, ticks, _) in refs.items()}
+    runs = {}
+    for label, make, key, wrapper, per_tick in configs:
+        _, ticks, ref = refs[key]
+        audio, counts, timing, objs = {}, {}, {}, {}
+        for mode, capture in (("captured", None), ("eager", False)):
+            obj = objs[mode] = make(capture)
+            kernels.reset_launch_counts()
+            audio[mode] = sharded_run(torch, obj, ticks)
+            counts[mode] = path_counts(torch)
+            # one call of an eager sharded tick (250-600 launches, 10-20 ms of
+            # the host's time) for its device time: 10 would outlast the spin
+            timing[mode] = tick_timing(torch, obj.step, obj.init_carry(), ticks, reps=10 if obj.capture else 1)
+        got = audio["captured"]
+        r = {"shards": obj.shards, "per_shard": ticks.shape[-1] // obj.shards, "ticks": len(ticks),
+             "captured_equals_eager": bool(np.array_equal(got, audio["eager"])),
+             "launches": counts["captured"], "eager_launches": counts["eager"], **timing,
+             "unsharded_captured": unsharded_times[key],
+             # the sharded tick's device time over the unsharded tick's:
+             # the halo's redundant compute and S times as many launches
+             "device_time_ratio": timing["captured"]["tick_device_us"] / unsharded_times[key]["tick_device_us"]}
+        if isinstance(obj, TimeShardedStream):
+            r.update(form="stagewise" if obj.stagewise else "chain-wide", halo=obj.halo,
+                     stage_halos={n: h for n, _b, h, _s, _bs in obj._stages} if obj.stagewise else None)
+            # the input samples a shard computes again for its halo, over its own
+            first = obj._stages[0][2] if obj.stagewise else obj.halo
+            r["halo_input_share"] = first / r["per_shard"]
+            r["vs_unsharded_db"] = exact_or_db(ref, got)
+            r["bit_exact_vs_unsharded"] = r["vs_unsharded_db"] is None
+            r["amp"], r["snr_db"] = tone_fit(got, 48000.0)
+        else:
+            rows = [2, 61]
+            r.update(m_pad=obj.m_pad, halo=obj.halo, stations_vs_unsharded_db=exact_or_db(ref[rows], got[rows]),
+                     all_channels_vs_unsharded_db=exact_or_db(ref, got), bit_exact_vs_unsharded=bool(np.array_equal(ref, got)))
+            for k, fa in ((2, 700.0), (61, 1200.0)):
+                r[f"ch{k}_amp"], r[f"ch{k}_snr_db"] = tone_fit(got[k], info["audio_rate"], fa, skip=2)
+            r["cross_amp"] = tone_fit(got[61], info["audio_rate"], 700.0, skip=2)[0]
+        runs[label] = r
+        print(f"phase 12 {label} [{card}]: " + json.dumps(r), flush=True)
+        check(r["captured_equals_eager"], f"sharded {label}: captured audio differs from eager")
+        expected = {w: 0 for w in counts["captured"]}
+        if wrapper is not None:
+            expected[wrapper] = per_tick * len(ticks)
+        check_path(counts["captured"], f"sharded {label} captured", expected)
+        check_path(counts["eager"], f"sharded {label} eager", expected)
+        captured = objs["captured"]
+        check(captured.capture and len(next(iter(captured._step_cache.values()))._graphs) == 1,
+              f"sharded {label}: not one captured graph")
+        if isinstance(obj, TimeShardedStream):
+            check(r["bit_exact_vs_unsharded"] or r["vs_unsharded_db"] <= SHARD_DB,
+                  f"sharded {label}: {r['vs_unsharded_db']} dB from unsharded")
+            if key == "nbfm":
+                check(abs(r["amp"] - nb_amp) < 0.02 and r["snr_db"] > NBFM_SNR_MIN_DB,
+                      f"sharded {label}: tone {r['amp']:.4f}, {r['snr_db']:.1f} dB")
+            else:
+                check(abs(r["amp"] - TONE_AMP) < 0.02 and r["snr_db"] > SNR_MIN_DB,
+                      f"sharded {label}: tone {r['amp']:.4f}, {r['snr_db']:.1f} dB")
+        else:
+            for k in (2, 61):
+                check(r[f"ch{k}_snr_db"] > BANK_SNR_MIN_DB, f"sharded {label}: channel {k} at {r[f'ch{k}_snr_db']:.1f} dB")
+            check(r["cross_amp"] < 0.1 * r["ch61_amp"], f"sharded {label}: cross-talk {r['cross_amp']:.4f}")
+            check(r["stations_vs_unsharded_db"] is None or r["stations_vs_unsharded_db"] <= AUDIO_TOL_DB,
+                  f"sharded {label}: stations {r['stations_vs_unsharded_db']} dB from unsharded")
+    used["shard:banded_fir"] = runs["wbfm_stagewise_s8"]["launches"]["banded_fir"]
+    used["shard:banded_fir_chainwide"] = runs["wbfm_chainwide_s8"]["launches"]["banded_fir"]
+    used["shard:banded_fir_prelude"] = runs["wbfm_fused_stagewise_s2"]["launches"]["banded_fir_prelude"]
+    used["shard:fused_fm_demod"] = runs["nbfm_fused_stagewise_s8"]["launches"]["fused_fm_demod"]
+    used["shard:fir_decim"] = runs["json_graph_chainwide_s8"]["launches"]["fir_decim"]
+
+    # a DistMesh over NCCL at world size 1 in this process, meeting through
+    # a FileStore (no port): one WBFM tick equals a LocalMesh(1)'s
+    local = TimeShardedStream(wb_chain, LocalMesh({"dev": 1}, dev), capture=False)
+    want = local.step(local.init_carry(), wb_ticks[0])[1].cpu().numpy()
+    store = OUT_DIR / "nccl_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        dist_stream = TimeShardedStream(wb_chain, mesh)
+        kernels.reset_launch_counts()
+        got = dist_stream.step(dist_stream.init_carry(), wb_ticks[0])[1].cpu().numpy()
+        nccl = {"mesh": repr(mesh), "backend": str(dist.get_backend()), "world_size": mesh.world_size,
+                "bit_exact_vs_local": bool(np.array_equal(got, want)), "launches": path_counts(torch),
+                "captured": dist_stream.capture}
+    finally:
+        dist.destroy_process_group()
+    runs["nccl_world_1"] = nccl
+    print(f"phase 12 DistMesh over NCCL at world size 1 [{card}]: " + json.dumps(nccl), flush=True)
+    check(isinstance(mesh, DistMesh) and nccl["backend"] == "nccl" and nccl["bit_exact_vs_local"],
+          f"DistMesh over NCCL: {nccl}")
+    check(nccl["launches"]["banded_fir"] == 1, f"DistMesh over NCCL: launches {nccl['launches']}")
+
+    # each kernel at the shard shapes the paths above launch, against its
+    # plain version; the shard's halo and tick through the streaming call
+    rng = np.random.default_rng(12)
+
+    def crandn(n):
+        return torch.from_numpy((rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)).to(dev)
+
+    def fir_cost(n_in, n_taps, n_out, complex_taps):
+        per_tap = 8 if complex_taps else 4
+        return (n_in + n_out) * 8 + n_taps * per_tap, n_out * n_taps * per_tap
+
+    cmp = {}
+    shiftfir = wb_chain.get_block("shiftfir")
+    ctaps, T, D = shiftfir.mod_taps, shiftfir.taps.shape[-1], shiftfir.decimation
+    stage_h = runs["wbfm_stagewise_s8"]["stage_halos"]["shiftfir"]
+    per = TICK // 8
+    for key, n in (("k1_stagewise", per + stage_h), ("k1_chainwide", per + runs["wbfm_chainwide_s8"]["halo"])):
+        x, hist, M = crandn(n), crandn(T - 1), n // D
+        plan = fir_banded.decim_fir_plan(T, D, True, M)
+        print(f"phase 12 D-FIR plan at ({T}, /{D}), shard M={M}: {plan}", flush=True)
+        cmp[key] = compare(
+            torch, card, f"D-FIR history form T={T} D={D} N={n} (a shard of 8) {plan}",
+            lambda x=x, hist=hist: fir_banded.banded_fir(x, ctaps, D, history=hist),
+            lambda x=x, hist=hist, M=M: fir_banded.decim_fir_plain(hist, x, ctaps, D, 0, M),
+            fir_banded.banded_fir, *fir_cost(n + T - 1, T, M, True),
+            **conv1d_fir(torch, torch.cat([hist, x]), ctaps, D, M), phase="phase 12")
+    front = fused_chain.get_block("frontend")
+    G, _ = fir_banded.prelude_plan(T, D)
+    n2 = TICK + runs["wbfm_fused_stagewise_s2"]["stage_halos"]["frontend"]
+    x2, pre = crandn(n2), crandn(8 * G).reshape(8, G)
+    cmp["k2_shard"] = compare(
+        torch, card, f"D-FIR prelude form T={T} D={D} N={n2} (a shard of 2)",
+        lambda: fir_banded.banded_fir_prelude(x2, pre, front.mod_taps, D),
+        lambda: fir_banded.decim_fir_plain(pre.reshape(-1), x2, front.mod_taps, D, 8 * G - (T - 1), n2 // D),
+        fir_banded.banded_fir_prelude, *fir_cost(n2 + 8 * G, T, n2 // D, True),
+        **conv1d_fir(torch, torch.cat([pre.reshape(-1), x2])[8 * G - (T - 1):], front.mod_taps, D, n2 // D),
+        phase="phase 12")
+    nb_front = nb_chain.get_block("frontend")
+    Tf, Df = nb_front.taps.shape[-1], nb_front.decimation
+    Hf = (Tf - 1) + Df
+    n3 = nb_tick // 8 + runs["nbfm_fused_stagewise_s8"]["stage_halos"]["frontend"]
+    ext = torch.from_numpy(fm_signal(Hf + n3, 2e6, 100e3, 5e3, seed=12)).to(dev)
+    ph = osc.as_phase(0xFFFFFF00, dev)  # a shard's phase, just short of the wrap
+    M3 = (ext.shape[0] - (Tf - 1)) // Df - 1
+    plan3 = fm_fused.fm_fused_plan(Tf, Df, M3)
+    print(f"phase 12 FM-fused plan at ({Tf}, /{Df}), shard M={M3}: {plan3}, {fm_fused.fm_fused_blocks(M3, plan3)} blocks",
+          flush=True)
+    cmp["k3_shard"] = compare(
+        torch, card, f"FM-fused T={Tf} D={Df} M={M3} (a shard of 8) {plan3}",
+        lambda: fm_fused.fused_fm_demod(ext[Hf:], nb_front.taps, Df, nb_front.inc, ph, nb_front.gain, history=ext[:Hf]),
+        lambda: fm_fused.fused_fm_demod_plain(ext, nb_front.taps, Df, nb_front.inc, ph, nb_front.gain, M3),
+        fm_fused.fused_fm_demod, ext.shape[0] * 8 + Tf * 4 + M3 * 4, ext.shape[0] * 6 + (M3 + 1) * Tf * 4,
+        phase="phase 12")
+    rtaps = graph.nodes["rf.fir"].taps
+    n4 = per + runs["json_graph_chainwide_s8"]["halo"]
+    x4, h4, M4 = crandn(n4), crandn(T - 1), n4 // D
+    plan4 = fir_poly.fir_decim_plan(T, D, M4)
+    print(f"phase 12 K4 plan at ({T}, /{D}), shard M={M4}: {plan4}, {fir_poly.fir_decim_blocks(M4, plan4)} blocks",
+          flush=True)
+    cmp["k4_shard"] = compare(
+        torch, card, f"K4 fir_decim T={T} D={D} N={n4} (a shard of 8) {plan4}",
+        lambda: fir_poly.fir_decim(x4, rtaps, D, history=h4),
+        lambda: fir_poly.fir_decim_plain(x4, rtaps, D, M4, h4),
+        fir_poly.fir_decim, *fir_cost(n4 + T - 1, T, M4, False),
+        **conv1d_fir(torch, torch.cat([h4, x4]), rtaps, D, M4), phase="phase 12")
+    runs["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 took {runs['wall_s']:.1f} s", flush=True)
+    return runs, cmp
+
+
 def main() -> int:
     import torch
 
@@ -1483,6 +1766,7 @@ def main() -> int:
         "channel_bank": bank_phase(torch, card, dev),  # phase 9
         "captured_step": captured_phase(torch, card, dev),  # phase 10
     }
+    main_runs["sharded"], shard_cmp = sharded_phase(torch, card, dev, wbfm_audio, used)  # phase 12
 
     # -- phase 11: report -------------------------------------------------------
     # launches: the count of the main path that runs the kernel at the row's
@@ -1530,6 +1814,22 @@ def main() -> int:
         {"name": "staged_shift_sum", "route": "cuda", "source": src + "staging_probes.cu",
          "replaces": "benchmarks/pallas_mosaic_probes.py:96",
          "launches": used["staged_shift_sum"], **_nums(cmp["k8"])},
+        # phase 12: the kernels at the shard shapes of the sharded paths
+        {"name": "decim_fir (history form, WBFM a shard of 8 stagewise, M=3,211)", "route": "cuda",
+         "source": src + "decim_fir.cu", "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["shard:banded_fir"], **_nums(shard_cmp["k1_stagewise"])},
+        {"name": "decim_fir (history form, WBFM a shard of 8 chain-wide, M=4,000)", "route": "cuda",
+         "source": src + "decim_fir.cu", "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["shard:banded_fir_chainwide"], **_nums(shard_cmp["k1_chainwide"])},
+        {"name": "decim_fir (prelude form, WBFM fused a shard of 2, M=26,624)", "route": "cuda",
+         "source": src + "decim_fir.cu", "replaces": "tpusdr/kernels/fir_banded_pallas.py:604",
+         "launches": used["shard:banded_fir_prelude"], **_nums(shard_cmp["k2_shard"])},
+        {"name": "fm_fused (NBFM a shard of 8, M=2,513)", "route": "cuda", "source": src + "fm_fused.cu",
+         "replaces": "tpusdr/kernels/fm_pallas.py:205",
+         "launches": used["shard:fused_fm_demod"], **_nums(shard_cmp["k3_shard"])},
+        {"name": "fir_decim (JSON graph a shard of 8 chain-wide, M=4,000)", "route": "cuda", "source": src + "fir_poly.cu",
+         "replaces": "tpusdr/kernels/fir_pallas.py:119",
+         "launches": used["shard:fir_decim"], **_nums(shard_cmp["k4_shard"])},
     ]
     for row in kern:
         check(row["launches"] > 0, f"{row['name']}: not launched on its main path")
@@ -1542,7 +1842,7 @@ def main() -> int:
         for key, r in cmp.items()
     }
     print(f"phase 11 bounds at K5's rate ({k5_gbps:.1f} GB/s in): " + json.dumps(report["bounds_at_k5_rate"]), flush=True)
-    report.update(kernels=kern, compare=cmp, main=main_runs)
+    report.update(kernels=kern, compare=cmp, shard_compare=shard_cmp, main=main_runs)
     (OUT_DIR / "chip_smoke_last.json").write_text(json.dumps(report, indent=1))
     print(json.dumps({"kernels": kern}), flush=True)
     print(card, flush=True)

@@ -797,3 +797,151 @@ def test_k3_pointer_form_near_the_wrap(cuda, rng):
             ref = tfm.fused_fm_demod_plain(z, h, D, inc, ph, 0.32, M)
             assert torch.equal(got, by_value)
             np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * 0.32)
+
+
+# -- the sharded streams (tpusdr_torch.parallel) on the card ---------------------------------
+
+#: label -> (rng -> (block, three host ticks), shards, stagewise, the kernel the
+#: path launches): chip_smoke.py's phase 12 at three ticks
+SHARDED = {
+    "wbfm stagewise": (lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0],
+                                    np.split(fm_tone(rng, 3 * 1_280_000, 20e6, 2.5e6, 75e3), 3)), 8, True, "banded_fir"),
+    "wbfm chain-wide": (lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0],
+                                     np.split(fm_tone(rng, 3 * 1_280_000, 20e6, 2.5e6, 75e3), 3)), 8, False, "banded_fir"),
+    "nbfm fused": (lambda rng: (receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)[0],
+                                np.split(fm_tone(rng, 3 * 1_320_000, 2e6, 100e3, 5e3), 3)), 8, True, "fused_fm_demod"),
+    "json graph": (lambda rng: (wbfm_graph(20e6, 2.5e6), np.split(fm_tone(rng, 3 * 1_280_000, 20e6, 2.5e6, 75e3), 3)),
+                   8, False, "fir_decim"),
+}
+
+
+def sharded_audio(obj, ticks, device):
+    """Three ticks through ``obj.step``, each output cloned before the next
+    step, and the launch counts of the run."""
+    kernels.reset_launch_counts()
+    carry, outs = obj.init_carry(), []
+    for blk in ticks:
+        carry, y = obj.step(carry, torch.from_numpy(blk).to(device))
+        outs.append(y.clone())
+    out = torch.cat(outs, dim=-1).cpu().numpy()
+    return out, {w.__name__: w.launches for w in kernels.WRAPPERS}
+
+
+@pytest.mark.parametrize("label", list(SHARDED))
+def test_sharded_stream_on_the_card(cuda, rng, label):
+    """A TimeShardedStream over LocalMesh(8) on the card, captured (one
+    graph a tick from the second tick on) and eager: bit for bit the same,
+    the path's kernel launched once a shard a tick; the audio within -60 dB
+    of the same stream on the CPU and within -100 dB of the unsharded
+    chain on the card."""
+    from tpusdr_torch.parallel import TimeShardedStream, make_mesh
+
+    build, shards, stagewise, wrapper = SHARDED[label]
+    block, ticks = build(rng)
+    cpu_block = copy.deepcopy(block)
+    captured_obj = TimeShardedStream(block, make_mesh(shards), stagewise=stagewise)
+    assert captured_obj.capture and captured_obj.mesh.device.type == "cuda"
+    captured, counts = sharded_audio(captured_obj, ticks, cuda)
+    eager, eager_counts = sharded_audio(TimeShardedStream(block, make_mesh(shards), stagewise=stagewise,
+                                                          capture=False), ticks, cuda)
+    assert np.array_equal(captured, eager) and counts == eager_counts
+    assert counts[wrapper] == shards * len(ticks) and sum(counts.values()) == counts[wrapper]
+    assert len(next(iter(captured_obj._step_cache.values()))._graphs) == 1
+    on_cpu, _ = sharded_audio(TimeShardedStream(cpu_block, make_mesh(shards, device="cpu"), stagewise=stagewise),
+                              ticks, "cpu")
+    assert err_db(on_cpu, captured) <= -60.0
+    state, outs = block.init_state(device=cuda), []
+    for blk in ticks:
+        state, y = block.apply(state, torch.from_numpy(blk).to(cuda))
+        outs.append(y)
+    unsharded = torch.cat(outs).cpu().numpy()
+    assert np.array_equal(unsharded, captured) or err_db(unsharded, captured) <= -100.0
+
+
+@pytest.mark.parametrize("shards", [4, 5])
+def test_sharded_bank_on_the_card(cuda, shards):
+    """The 64-channel bank over LocalMesh(4) and (5) (65 channels, one
+    dead) on the card, captured and eager bit for bit, no kernel launched;
+    the stations' audio within -60 dB of the same bank on the CPU."""
+    from tpusdr_torch.graph.chain import Chain
+    from tpusdr_torch.parallel import ChannelShardedBank, make_mesh
+
+    chain, _ = multichannel.fm_channel_bank(20.48e6, 64, 16000.0)
+    cpu_chain = copy.deepcopy(chain)
+    ticks = bank_ticks(3, 2_096_640)
+
+    def make(blocks, device, capture=None):
+        return ChannelShardedBank(blocks[0][1], Chain(blocks[1:]), make_mesh(shards, device=device), capture=capture)
+
+    captured, counts = sharded_audio(make(chain.blocks, None), ticks, cuda)
+    eager, _ = sharded_audio(make(chain.blocks, None, capture=False), ticks, cuda)
+    assert np.array_equal(captured, eager) and not any(counts.values())
+    on_cpu, _ = sharded_audio(make(cpu_chain.blocks, "cpu"), ticks, "cpu")
+    assert captured.shape == on_cpu.shape == (64, 3 * 2_096_640 // 1280)
+    assert err_db(on_cpu[[2, 61]], captured[[2, 61]]) <= -60.0
+
+
+@pytest.mark.parametrize(
+    "kernel,T,D,M,plan",
+    [
+        ("decim_fir", 546, 50, 3_211, ("taps", 8)),  # WBFM 20 Msps, a shard of 8, stagewise halo 550
+        ("decim_fir", 546, 50, 4_000, ("taps", 8)),  # chain-wide halo 40,000
+        ("fm_fused", 728, 66, 2_513, ("taps", 8)),  # NBFM 2 Msps, a shard of 8, stagewise halo 858
+        ("fir_decim", 546, 50, 4_000, ("taps", 32)),  # the WBFM JSON graph, a shard of 8, chain-wide
+    ],
+)
+def test_kernels_at_the_shard_shapes(cuda, rng, kernel, T, D, M, plan):
+    """K1, K3 and K4 at the shapes a shard of 8 gives them, through their
+    wrappers with the plan their rule picks (the other inner loop than the
+    whole tick's), against the plain versions; K3 with a shard's phase
+    just short of the 2^32 wrap, through the pointer."""
+    H = (T - 1) + (D if kernel == "fm_fused" else 0)
+    if kernel == "fm_fused":
+        assert tuple(tfm.fm_fused_plan(T, D, M))[:2] == plan
+        h = taps(T, False, cuda)
+        z = torch.from_numpy(fm_tone(rng, (T - 1) + (M + 1) * D, 2e6, 100e3, 5e3)).to(cuda)
+        inc = osc.freq_to_inc_u32(-100e3, 2e6)
+        got = tfm.fused_fm_demod(z[H:], h, D, inc, osc.as_phase(2**32 - 256, cuda), 0.32, history=z[:H])
+        ref = tfm.fused_fm_demod_plain(z, h, D, inc, 2**32 - 256, 0.32, M)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * 0.32)
+        return
+    hist, x = crandn(rng, cuda, H), crandn(rng, cuda, M * D)
+    if kernel == "decim_fir":
+        assert tuple(tfb.decim_fir_plan(T, D, True, M))[:2] == plan
+        h = taps(T, True, cuda)
+        close_to_peak(tfb.banded_fir(x, h, D, history=hist), tfb.decim_fir_plain(hist, x, h, D, 0, M))
+    else:
+        assert tuple(tfp.fir_decim_plan(T, D, M))[:2] == plan
+        h = taps(T, False, cuda)
+        close_to_peak(tfp.fir_decim(x, h, D, history=hist), tfp.fir_decim_plain(x, h, D, M, hist))
+
+
+def test_nccl_processes_match_a_local_mesh(cuda, tmp_path):
+    """Four processes, one a card, over NCCL: each reads its byte ranges (or
+    its segment) of a capture and runs the time-sharded chain in both halo
+    forms and the channel bank over DistMesh(4) (the ring shift, the
+    all-to-all and the gather on the wire), and every rank's output equals
+    a LocalMesh(4) on one card bit for bit.  Needs four cards; it checks
+    the collectives, it does not time them."""
+    import importlib.util
+    from pathlib import Path
+
+    from tpusdr_torch.parallel.mesh import LocalMesh
+
+    # by its path: the card's machine may have another package named ``tests``
+    spec = importlib.util.spec_from_file_location("torch_ingest_workers", Path(__file__).with_name("test_torch_ingest.py"))
+    ti = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ti)
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    rng = np.random.default_rng(7)
+    path = str(tmp_path / "cap.cf32")
+    z = ti.capture(rng, ti.N_TICKS * ti.TICK)
+    z.tofile(path)
+    ti.write_segments(z, path, 4, ti.TICK)
+    ticks = [torch.from_numpy(z[i * ti.TICK : (i + 1) * ti.TICK]).to(cuda) for i in range(ti.N_TICKS)]
+    local = LocalMesh({"dev": 4}, cuda)
+    want, want_moves = ti.run_all(local, ticks, ticks), ti.mesh_moves(local)
+    ti.run_ranks(tmp_path, 4, path, "nccl")
+    ti.check_ranks(tmp_path, 4, want, want_moves)

@@ -8,10 +8,14 @@ arrays, phases as uint32 scalars and sample counts as int32 scalars.
 float32 tensors, phases as 0-d int64 tensors marked by ``ops/osc.py``,
 int64 sample counts); ``state_to_numpy`` goes back, so carries compare
 value for value: a phase returns as uint32, a count as int32, refused once
-it no longer fits one.  The AM chain's carries are of
-these kinds too: ``DcBlock``'s {"x1", "y1"} float32 arrays, a
-``SampleCountMonitor``'s count; ``IqToComplex`` and ``QuadAmDemod``
-carry nothing.
+it no longer fits one.  The AM chain's carries are of these kinds too:
+``DcBlock``'s {"x1", "y1"} float32 arrays, a ``SampleCountMonitor``'s
+count; ``IqToComplex`` and ``QuadAmDemod`` carry nothing.  So are the
+sharded streams' carries (``parallel/halo.py``: ``state``, ``tail``, a
+dict of per-stage tails when stagewise, and ``tail_state``;
+``parallel/channels.py``: ``tail``, ``demod_state``): their ``Complex``
+tails map to complex64 tensors and back to pairs, their phases stay uint32
+on JAX's side.
 
 ``block_params_from_numpy`` builds a port block from the numbers of a JAX
 block (taps, NCO increment, gain, IIR coefficients) rather than from its

@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (each prints lines; any failure exits non-zero):
-  1. the card (nvidia-smi name and power limit) and the kernel build time;
+  1. the card (nvidia-smi name and power limit), the kernel build time and
+     the host library's (``tpusdr_torch/io/csrc/host_ring.cpp``);
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      main paths' shapes, with its time and the plain version's: D-FIR at
      the WBFM shape (history and prelude forms), at the single-stage AM
@@ -96,8 +97,9 @@ Phases (each prints lines; any failure exits non-zero):
      records (a graph's kernels), RunStats Msps;
  11. every phase 2 row's bound at K5's best rate in this run (the floor
      probe's ceiling) beside its bound at peak, a JSON line of the kernels
-     (with phase 12's shard shapes), the card line, and the result line
-     (printed after phase 12);
+     (with phase 12's shard shapes and phase 13's two paths as
+     ``native:banded_fir`` and ``shim:banded_fir``), the card line, and the
+     result line (printed after phase 13);
  12. the sharded streams (``tpusdr_torch.parallel``) on a ``LocalMesh`` on
      the card, each captured (one CUDA graph a tick) and eager on the same
      ticks: the WBFM 20 Msps receiver over 8 shards of phase 3's 16 ticks,
@@ -117,12 +119,29 @@ Phases (each prints lines; any failure exits non-zero):
      ``LocalMesh(1)``'s bit for bit.  Then K1 (both halos), K2, K3 and K4
      at the shard shapes those paths launch, against their plain versions,
      with the plan each rule picks.
+ 13. host IO into the WBFM 20 Msps receiver (K1 at (546, /50) once a tick):
+     (a) the receive CLI in-process on an int8 capture of phase 3's tone
+     written to build/ (16 ticks of 1,280,000 and a 300,000-sample tail),
+     with ``--native`` (``io/native.NativeFileStream``, the host library
+     built from ``tpusdr_torch/io/csrc/`` with the host compiler) and without:
+     the WAVs equal byte for byte, tail included, the tone at phase 3's
+     amplitude and SNR > 60 dB; printed: RunStats Msps both ways and the
+     NativeFileStream's own rate over the file with no chain behind it;
+     (b) the radio loop: an in-process ``RfShim`` over ``FakeSdrDriver``
+     (one FM station at 100.1 MHz, 1 kHz, 75 kHz deviation, not paced) ->
+     ``SocketIqSource`` -> ``fm_receiver(20e6, 2.5e6, WBFM, int8)`` on a
+     captured StreamRunner, centre 97.6 MHz for 8 ticks, then
+     ``SdrReceiverControl.tune_radio(98.6e6)`` and 8 more: the tone at both
+     sides (the first tick after the retune skipped), old-centre blocks
+     flushed, none dropped, the runner recaptured to one graph, K1 once a
+     tick; printed: ticks a second through the (host-bound) loop.
 
-Phases 5, 7, 8, 9 and 10 run StreamRunner, which replays one captured CUDA
+Phases 5, 7, 8, 9, 10 and 13 run StreamRunner, which replays one captured CUDA
 graph a tick on the card.  Each path runs with the launch counts set to 0
 just before it and read just after (a replay adds the launches its graph
 recorded); every kernel the path goes through must have launched.
-Needs a CUDA device and nvcc; builds the kernels into build/tpusdr_torch/.
+Needs a CUDA device, nvcc and a host C++ compiler; builds the kernels and
+the host library (phase 1) into build/tpusdr_torch/.
 """
 
 from __future__ import annotations
@@ -1727,12 +1746,151 @@ def sharded_phase(torch, card, dev, wbfm_audio, used: dict) -> tuple[dict, dict]
     return runs, cmp
 
 
+HOST_IO_TAIL = 300_000  # samples after phase 13's whole ticks: a short last block, not a multiple of the tick
+
+
+def int8_words(z: np.ndarray) -> np.ndarray:
+    """Complex samples -> HackRF int8 IQ (full scale 127) as packed int16
+    words, the port's block contract."""
+    inter = np.empty(2 * len(z), np.float32)
+    inter[0::2], inter[1::2] = z.real, z.imag
+    return np.clip(np.round(inter * 127.0), -128, 127).astype(np.int8).view(np.int16)
+
+
+def host_io_phase(torch, card, dev, used: dict) -> dict:
+    """Phase 13: host IO into the WBFM 20 Msps receiver on the card.
+
+    (a) The receive CLI in-process on an int8 capture of phase 3's tone
+    (16 ticks and a 300,000-sample tail), with ``--native`` (the
+    host library's read-ahead ring) and without (``FileIqSource``): the
+    WAVs equal byte for byte, the tail included, the tone decodes, K1 once
+    a block; then the NativeFileStream alone over the file.  (b) The radio
+    loop: ``RfShim`` over ``FakeSdrDriver`` (one FM station at 100.1 MHz,
+    not paced) -> ``SocketIqSource`` -> a captured ``StreamRunner``, centre
+    97.6 MHz for 8 ticks, then ``SdrReceiverControl.tune_radio``
+    to 98.6 MHz and as many more: the tone decodes on both sides (the first
+    tick after the retune skipped), blocks at the old centre were flushed,
+    none dropped, the runner recaptured once, K1 once a tick."""
+    import contextlib
+    import io
+    import re
+
+    from tpusdr_torch import kernels
+    from tpusdr_torch.apps import receive
+    from tpusdr_torch.graph.runner import StreamRunner
+    from tpusdr_torch.io.control import SdrControlClient, SdrReceiverControl
+    from tpusdr_torch.io.native import NativeFileStream
+    from tpusdr_torch.io.shim import FakeSdrDriver, RfShim, Station
+    from tpusdr_torch.io.sinks import CollectSink
+    from tpusdr_torch.io.sources import SocketIqSource
+    from tpusdr_torch.models import receiver
+
+    t_phase = time.perf_counter()
+    fs = 20e6
+    runs: dict = {}
+
+    # (a) --native against the plain file path, the same capture feeding both
+    capture = OUT_DIR / "wbfm_20msps_int8.iq"
+    n_in = N_TICKS * TICK + HOST_IO_TAIL
+    int8_words(fm_signal(n_in, fs, 2.5e6, 75e3, seed=3)).tofile(capture)
+    n_blocks = N_TICKS + 1
+    wavs = {}
+    for label, extra in (("native", ["--native"]), ("plain", [])):
+        wavs[label] = OUT_DIR / f"wbfm_20msps_{label}.wav"
+        out = io.StringIO()
+        kernels.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc = receive.main([
+                "--device", str(dev), "--mod", "wbfm", "--format", "int8", "--input", str(capture),
+                "--rf-rate", "20e6", "--offset", "2.5e6", "--tick", str(TICK),
+                "--duration", str((n_blocks + 0.5) * TICK / fs), "--audio", str(wavs[label]), *extra,
+            ])
+        counts = path_counts(torch)
+        check(rc == 0, f"receive CLI {label} exited {rc}")
+        said = re.search(r"\(([0-9.]+) Msps\)", out.getvalue())
+        audio, wav_fs = read_wav(wavs[label])
+        amp, snr = tone_fit(audio, wav_fs)
+        runs[label] = {"amp": amp, "snr_db": snr, "samples": len(audio),
+                       "runstats_msps_in": float(said.group(1)) if said else None, "launches": counts}
+        print(f"phase 13 WBFM 20 Msps int8 CLI, {label} file path [{card}]: " + json.dumps(runs[label]), flush=True)
+        check_path(counts, f"CLI {label}", {"banded_fir": n_blocks})
+        check(abs(amp - TONE_AMP) < 0.02 and snr > SNR_MIN_DB, f"CLI {label}: tone {amp:.4f}, {snr:.1f} dB")
+        # 20 Msps -> 48 kHz is 3 / 1250: the tail's audio is owed too
+        check(len(audio) == n_in * 3 // 1250, f"CLI {label}: {len(audio)} audio samples for {n_in} in")
+    runs["native_equals_plain"] = wavs["native"].read_bytes() == wavs["plain"].read_bytes()
+    used["native:banded_fir"] = runs["native"]["launches"]["banded_fir"]
+    t0 = time.perf_counter()
+    n_read = 0
+    with NativeFileStream(str(capture), TICK, "int8") as stream:
+        for words in stream:
+            n_read += len(words)
+    runs["stream_host_msps"] = n_read / (time.perf_counter() - t0) / 1e6
+    print(f"phase 13 --native WAV equals the plain path's: {runs['native_equals_plain']}; NativeFileStream alone "
+          f"over the file: {runs['stream_host_msps']:.1f} Msps", flush=True)
+    check(runs["native_equals_plain"], "--native audio differs from the plain file path's")
+    check(n_read == n_in, f"NativeFileStream read {n_read} of {n_in} samples")
+
+    # (b) the radio loop: fake radio -> shim -> socket -> captured runner
+    half = N_TICKS // 2
+    chain, spec = receiver.fm_receiver(fs, 2.5e6, receiver.WBFM, input_format="int8")
+    runner = StreamRunner(chain.to(dev), device=dev)
+    driver = FakeSdrDriver([Station(100.1e6, "fm", audio_hz=1000.0, deviation=75e3)], block_samples=TICK)
+    sinks = (CollectSink(), CollectSink())
+    with RfShim(driver) as shim, SdrControlClient("127.0.0.1", shim.control_port, timeout_s=60.0) as client:
+        client.select_device(index=0)
+        client.set_sample_rate(fs)
+        client.set_frequency(97.6e6)  # the station at +2.5 MHz
+        src = SocketIqSource("127.0.0.1", shim.data_port, TICK, "int8", pool_blocks=4 * N_TICKS, timeout_s=60.0)
+        ctl = SdrReceiverControl(client, runner, 97.6e6, 100.1e6, source=src)
+        client.start()
+        try:
+            blocks = iter(src)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, _ = runner.run(blocks, sinks[0], max_blocks=half)
+            first = runner._step
+            # blocks captured at the old centre must be in flight at the retune
+            deadline = time.time() + 60.0
+            while shim.bytes_sent < (half + 2) * 2 * TICK and time.time() < deadline:
+                time.sleep(0.01)
+            ctl.tune_radio(98.6e6)  # the station at +1.5 MHz
+            runner.run(blocks, sinks[1], state=state, max_blocks=half)
+            loop_s = time.perf_counter() - t0
+            counts = path_counts(torch)
+            loop = {"flushed_blocks": src.flushed_blocks, "dropped_blocks": src.dropped_blocks,
+                    "recaptured": runner._step is not first, "graphs_after": len(getattr(runner._step, "_graphs", ())),
+                    "shift_hz": chain.get_block("shiftfir").frequency, "ticks_per_s": 2 * half / loop_s,
+                    "launches": counts}
+        finally:
+            src.close()
+            client.stop()
+    before, after = sinks[0].result(), sinks[1].result()
+    loop["amp_before"], loop["snr_db_before"] = tone_fit(before, spec.audio_rate)
+    loop["amp_after"], loop["snr_db_after"] = tone_fit(after, spec.audio_rate, skip=half)  # the first tick skipped
+    runs["shim_loop"] = loop
+    used["shim:banded_fir"] = counts["banded_fir"]
+    runs["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13 shim loop, WBFM 20 Msps, retune 97.6 -> 98.6 MHz after {half} ticks [{card}]: "
+          + json.dumps(loop), flush=True)
+    print(f"phase 13 took {runs['phase_s']:.1f} s", flush=True)
+    check(loop["flushed_blocks"] > 0 and loop["dropped_blocks"] == 0,
+          f"shim loop: {loop['flushed_blocks']} blocks flushed, {loop['dropped_blocks']} dropped")
+    check(loop["recaptured"] and loop["graphs_after"] == 1, f"shim loop: {loop}")
+    check(abs(loop["shift_hz"] + 1.5e6) < 1.0, f"shim loop: the NCO at {loop['shift_hz']} Hz after the retune")
+    check_path(counts, "shim loop", {"banded_fir": 2 * half})
+    for side in ("before", "after"):
+        amp, snr = loop[f"amp_{side}"], loop[f"snr_db_{side}"]
+        check(abs(amp - TONE_AMP) < 0.02 and snr > SNR_MIN_DB, f"shim loop {side} the retune: {amp:.4f}, {snr:.1f} dB")
+    return runs
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from tpusdr_torch.io import native
     from tpusdr_torch.kernels import build
     from tpusdr_torch.models import receiver
     from tpusdr_torch.utils.profiling import card_line
@@ -1748,8 +1906,12 @@ def main() -> int:
     t0 = time.perf_counter()
     build.library()
     report["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.get_lib()
+    report["host_build_s"] = time.perf_counter() - t0
     print(f"phase 1: card {card!r}, device {report['device']!r}, "
-          f"kernels built in {report['build_s']:.1f} s", flush=True)
+          f"kernels built in {report['build_s']:.1f} s, the host library in {report['host_build_s']:.1f} s",
+          flush=True)
 
     am_pallas, _ = receiver.am_receiver(20e6, 1.2e6, input_format="int8", fir_mode="pallas", fold_shift=False)
     cmp = kernel_phase(torch, card, dev, am_pallas)  # phase 2
@@ -1767,12 +1929,13 @@ def main() -> int:
         "captured_step": captured_phase(torch, card, dev),  # phase 10
     }
     main_runs["sharded"], shard_cmp = sharded_phase(torch, card, dev, wbfm_audio, used)  # phase 12
+    main_runs["host_io"] = host_io_phase(torch, card, dev, used)  # phase 13
 
     # -- phase 11: report -------------------------------------------------------
     # launches: the count of the main path that runs the kernel at the row's
-    # shape (K1 WBFM default, the AM CLI and the digital app; K2 WBFM fused,
-    # K3 NBFM, K4 the JSON graph and a stage of the AM K4 runner, K5-K8 the
-    # probes' entry points)
+    # shape (K1 WBFM default, the AM CLI, the digital app and phase 13's two
+    # host IO paths; K2 WBFM fused, K3 NBFM, K4 the JSON graph and a stage of
+    # the AM K4 runner, K5-K8 the probes' entry points)
     src = "tpusdr_torch/kernels/csrc/"
     kern = [
         {"name": "decim_fir (history form)", "route": "cuda", "source": src + "decim_fir.cu",
@@ -1781,6 +1944,12 @@ def main() -> int:
         {"name": "decim_fir (prelude form)", "route": "cuda", "source": src + "decim_fir.cu",
          "replaces": "tpusdr/kernels/fir_banded_pallas.py:604",
          "launches": used["banded_fir_prelude"], **_nums(cmp["prelude"])},
+        {"name": "decim_fir (history form, WBFM CLI --native)", "route": "cuda", "source": src + "decim_fir.cu",
+         "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["native:banded_fir"], **_nums(cmp["hist"])},
+        {"name": "decim_fir (history form, WBFM shim loop)", "route": "cuda", "source": src + "decim_fir.cu",
+         "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
+         "launches": used["shim:banded_fir"], **_nums(cmp["hist"])},
         {"name": "decim_fir (history form, AM stage 1 (868, /250))", "route": "cuda", "source": src + "decim_fir.cu",
          "replaces": "tpusdr/kernels/fir_banded_pallas.py:243",
          "launches": used["am:banded_fir"], **_nums(cmp["hist_am1"])},

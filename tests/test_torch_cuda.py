@@ -916,6 +916,97 @@ def test_kernels_at_the_shard_shapes(cuda, rng, kernel, T, D, M, plan):
         close_to_peak(tfp.fir_decim(x, h, D, history=hist), tfp.fir_decim_plain(x, h, D, M, hist))
 
 
+# -- host IO into the WBFM 20 Msps receiver: --native and the shim loop --------
+
+
+def int8_words(z):
+    """Complex samples -> int8 IQ (full scale 127) as packed int16 words."""
+    inter = np.empty(2 * len(z), np.float32)
+    inter[0::2], inter[1::2] = z.real, z.imag
+    return np.clip(np.round(inter * 127.0), -128, 127).astype(np.int8).view(np.int16)
+
+
+def tone_amp_snr(x, fs, f=1000.0):
+    t = np.arange(len(x)) / fs
+    b = np.stack([np.sin(2 * np.pi * f * t), np.cos(2 * np.pi * f * t)], 1)
+    c, *_ = np.linalg.lstsq(b, x.astype(np.float64), rcond=None)
+    fit = b @ c
+    r = x - fit - (x - fit).mean()
+    return float(np.hypot(*c)), float(10 * np.log10((fit**2).mean() / (r**2).mean()))
+
+
+def test_native_equals_the_file_path_on_the_card(cuda, rng, tmp_path):
+    """The receive CLI on an int8 WBFM 20 Msps capture of 3 ticks and a
+    300,000-sample tail, with --native (the host library's ring) and
+    without: the WAVs equal byte for byte, tail included; K1 once a block."""
+    import wave
+
+    from tpusdr_torch.apps import receive
+
+    tick, fs = 1_280_000, 20e6
+    capture = tmp_path / "wbfm.iq"
+    int8_words(fm_tone(rng, 3 * tick + 300_000, fs, 2.5e6, 75e3)).tofile(capture)
+    wavs = {}
+    for label, extra in (("native", ["--native"]), ("plain", [])):
+        wavs[label] = tmp_path / f"{label}.wav"
+        kernels.reset_launch_counts()
+        assert receive.main(["--device", "cuda", "--mod", "wbfm", "--format", "int8", "--input", str(capture),
+                             "--rf-rate", "20e6", "--offset", "2.5e6", "--tick", str(tick),
+                             "--duration", str(4.5 * tick / fs), "--audio", str(wavs[label]), *extra]) == 0
+        torch.cuda.synchronize()
+        assert kernels.banded_fir.launches == 4
+    with wave.open(str(wavs["native"])) as w:
+        assert w.getnframes() == (3 * tick + 300_000) * 3 // 1250  # the tail's audio included
+    assert wavs["native"].read_bytes() == wavs["plain"].read_bytes()
+
+
+def test_shim_loop_recaptures_after_a_retune(cuda):
+    """Fake radio -> RfShim -> SocketIqSource -> the WBFM 20 Msps receiver
+    on a captured runner, retuned by SdrReceiverControl.tune_radio after 4
+    ticks: old-centre blocks flushed, none dropped, one recapture, K1 once
+    a tick, the 1 kHz tone on both sides (the first tick after the retune
+    skipped) at 0.34 and SNR > 60 dB."""
+    import time
+
+    from tpusdr_torch.io.control import SdrControlClient, SdrReceiverControl
+    from tpusdr_torch.io.shim import FakeSdrDriver, RfShim, Station
+    from tpusdr_torch.io.sources import SocketIqSource
+
+    tick, fs, half = 1_280_000, 20e6, 4
+    chain, spec = receiver.fm_receiver(fs, 2.5e6, receiver.WBFM, input_format="int8")
+    runner = StreamRunner(chain.to(cuda))
+    driver = FakeSdrDriver([Station(100.1e6, "fm", audio_hz=1000.0)], block_samples=tick)
+    sinks = (CollectSink(), CollectSink())
+    with RfShim(driver) as shim, SdrControlClient("127.0.0.1", shim.control_port, timeout_s=60.0) as client:
+        client.select_device(index=0)
+        client.set_sample_rate(fs)
+        client.set_frequency(97.6e6)
+        src = SocketIqSource("127.0.0.1", shim.data_port, tick, "int8", pool_blocks=32, timeout_s=60.0)
+        ctl = SdrReceiverControl(client, runner, 97.6e6, 100.1e6, source=src)
+        client.start()
+        try:
+            blocks = iter(src)
+            kernels.reset_launch_counts()
+            state, _ = runner.run(blocks, sinks[0], max_blocks=half)
+            first = runner._step
+            deadline = time.time() + 60.0
+            while shim.bytes_sent < (half + 2) * 2 * tick and time.time() < deadline:
+                time.sleep(0.01)  # old-centre blocks in flight at the retune
+            ctl.tune_radio(98.6e6)
+            runner.run(blocks, sinks[1], state=state, max_blocks=half)
+            torch.cuda.synchronize()
+            assert src.flushed_blocks > 0 and src.dropped_blocks == 0
+        finally:
+            src.close()
+            client.stop()
+    assert runner._step is not first and len(runner._step._graphs) == 1
+    assert kernels.banded_fir.launches == 2 * half
+    per_tick = tick * 3 // 1250
+    for audio in (sinks[0].result()[per_tick:], sinks[1].result()[per_tick:]):
+        amp, snr = tone_amp_snr(audio, spec.audio_rate)
+        assert abs(amp - 0.375 * 0.905) < 0.02 and snr > 60.0, (amp, snr)
+
+
 def test_nccl_processes_match_a_local_mesh(cuda, tmp_path):
     """Four processes, one a card, over NCCL: each reads its byte ranges (or
     its segment) of a capture and runs the time-sharded chain in both halo

@@ -296,14 +296,13 @@ def test_cli_refuses_the_cpu_unless_asked(monkeypatch):
 @pytest.mark.parametrize("opt", [["--dot", "g.dot"], ["--dump-if", "if.raw"], ["--checkpoint", "c"],
                                  ["--resume", "c"], ["--native"]])
 def test_cli_unported_options_raise(opt, capsys, tmp_path, monkeypatch):
-    """``--native`` is the one option still waiting for its module; the
-    graph-layer options, which this test once saw refused, now run (their
-    outputs are held to the JAX CLI's in tests/test_torch_digital.py)."""
+    """Every option of the JAX CLI now runs; this test once saw them
+    refused.  The graph-layer options write their files (their outputs are
+    held to the JAX CLI's in tests/test_torch_digital.py); ``--native`` is
+    checked in ``check_native``."""
     monkeypatch.chdir(tmp_path)
     if opt == ["--native"]:
-        with pytest.raises(SystemExit):
-            treceive.main(["--device", "cpu"] + opt)
-        assert "not ported yet (" in capsys.readouterr().err
+        check_native(tmp_path, capsys)
         return
     short = ["--device", "cpu", "--rf-rate", "2e6", "--offset", "3e5", "--duration", "0.05", "--tick", "50000"]
     if opt[0] == "--resume":
@@ -313,3 +312,40 @@ def test_cli_unported_options_raise(opt, capsys, tmp_path, monkeypatch):
     assert "not ported" not in capsys.readouterr().err
     made = {"--dot": "g.dot", "--dump-if": "if.raw", "--checkpoint": "c.npz", "--resume": "c.npz"}[opt[0]]
     assert (tmp_path / made).stat().st_size > 0
+
+
+def check_native(tmp_path, capsys):
+    """``--native`` on an int8 AM capture 2.5 ticks long: the audio equals
+    the plain file path's bit for bit, the tail included, and is within
+    -80 dB of the JAX CLI's ``--native`` audio over the two whole ticks JAX
+    keeps (it drops the tail, reference fault 2).  With synthetic input
+    ``--native`` changes nothing: the tone decodes at 0.25; the JAX CLI
+    feeds that input's packed int8 words to a cf32 chain and its audio is
+    not the tone (reference fault 12)."""
+    fs, tick = 2e6, 200_000
+    capture = tmp_path / "am.iq"
+    words = np.concatenate(list(SyntheticIqSource.am(tick, fs, 100e3, "int8", num_blocks=3)))
+    words[: 5 * tick // 2].tofile(capture)
+    file_args = ["--mod", "am", "--format", "int8", "--input", str(capture), "--rf-rate", "2e6",
+                 "--offset", "100e3", "--duration", "2", "--tick", str(tick)]
+    wavs = {k: tmp_path / f"{k}.wav" for k in ("native", "plain", "jax_native", "synth", "jax_synth")}
+    assert treceive.main(file_args + ["--device", "cpu", "--native", "--audio", str(wavs["native"])]) == 0
+    assert "on cpu" in capsys.readouterr().out
+    assert treceive.main(file_args + ["--device", "cpu", "--audio", str(wavs["plain"])]) == 0
+    assert jreceive.main(file_args + ["--platform", "cpu", "--native", "--audio", str(wavs["jax_native"])]) == 0
+    synth_args = CLI_ARGS + ["--native"]
+    assert treceive.main(synth_args + ["--device", "cpu", "--audio", str(wavs["synth"])]) == 0
+    assert jreceive.main(synth_args + ["--platform", "cpu", "--audio", str(wavs["jax_synth"])]) == 0
+    audio = {k: read_wav(w)[0] for k, w in wavs.items()}
+
+    assert audio["native"].shape == (5 * tick // 2 * 48000 // 2_000_000,)
+    np.testing.assert_array_equal(audio["native"], audio["plain"])
+    ref = audio["jax_native"]
+    assert ref.shape == (2 * tick * 48000 // 2_000_000,)  # JAX: no tail
+    x = audio["native"][: len(ref)]
+    assert 10 * np.log10(np.sum((x - ref) ** 2) / np.sum(ref**2)) <= -80.0
+
+    amp, snr = tone_fit(audio["synth"], 48000)
+    assert abs(amp - 0.25) < 0.02 and snr > 60.0, (amp, snr)
+    rms = lambda a: float(np.sqrt(np.mean(a[len(a) // 3 :] ** 2)))  # noqa: E731
+    assert rms(audio["synth"]) < 0.25 and rms(audio["jax_synth"]) > 0.5, (rms(audio["synth"]), rms(audio["jax_synth"]))

@@ -4,14 +4,18 @@ Reads IQ from a file, a TCP socket or a synthetic source, runs a WBFM,
 NBFM or AM chain on the chosen device through the StreamRunner, writes
 WAV (or, through ffmpeg, compressed) audio and prints throughput counters;
 optionally writes the graph as dot (``--dot``), dumps the pre-demod IF
-beside the audio in one pass (``--dump-if``), and saves or restores the
-stream state (``--checkpoint``, ``--resume``).
+beside the audio in one pass (``--dump-if``), saves or restores the
+stream state (``--checkpoint``, ``--resume``), and reads a capture file
+through the host library's read-ahead thread (``--native``,
+``io/native.py``).
 
 Examples:
   python -m tpusdr_torch.apps.receive --mod wbfm --input synth --rf-rate 2e6 \\
       --duration 2 --audio out.wav
   python -m tpusdr_torch.apps.receive --device cpu --mod am --format int8 \\
       --input synth --rf-rate 2e6 --offset 100e3 --audio am.wav
+  python -m tpusdr_torch.apps.receive --mod wbfm --format int8 --input cap.iq \\
+      --rf-rate 20e6 --offset 2.5e6 --tick 1280000 --native --audio fm.wav
 
 ``--device`` defaults to ``cuda``; without a CUDA device the CLI stops
 unless ``--device cpu`` is given.
@@ -29,15 +33,13 @@ from tpusdr_torch.graph.checkpoint import load_state, save_state
 from tpusdr_torch.graph.dot import to_dot
 from tpusdr_torch.graph.graph import tapped
 from tpusdr_torch.graph.runner import StreamRunner
+from tpusdr_torch.io.native import NativeFileStream
 from tpusdr_torch.io.sinks import AacFileSink, NullSink, RawFileSink, WavSink
 from tpusdr_torch.io.sources import FileIqSource, SocketIqSource, SyntheticIqSource
 from tpusdr_torch.models import receiver
 from tpusdr_torch.utils.logging import get_logger, set_log_level
 
 log = get_logger("apps.receive")
-
-#: options of the JAX CLI whose modules the port does not have yet
-_NOT_PORTED = {"native": "io/native.py, ROADMAP.md"}
 
 
 def _parse_float(s: str) -> float:
@@ -75,13 +77,12 @@ def main(argv=None) -> int:
                     help="save stream state here after the run (resume with --resume)")
     ap.add_argument("--resume", default=None,
                     help="restore stream state from a checkpoint before the run")
-    ap.add_argument("--native", action="store_true", help="not ported yet")
+    ap.add_argument("--native", action="store_true",
+                    help="read a capture file ahead on a native thread (io/native.py); "
+                    "no effect on synth or socket input")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args(argv)
 
-    for name, where in _NOT_PORTED.items():
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not ported yet ({where})")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         ap.error("no CUDA device: pass --device cpu to run on the CPU")
@@ -127,6 +128,12 @@ def main(argv=None) -> int:
         src = SocketIqSource(host, int(port), tick, args.format)
         if args.duration <= 0:
             n_blocks = None  # stream until the socket closes
+    elif args.native:
+        # the same words as FileIqSource's; they convert on the card
+        try:
+            src = NativeFileStream(args.input, tick, args.format)
+        except (RuntimeError, OSError) as e:
+            ap.error(f"--native: {e}")
     else:
         src = FileIqSource(args.input, tick, args.format, max_blocks=n_blocks)
 
@@ -159,6 +166,8 @@ def main(argv=None) -> int:
     finally:
         for s in sink if isinstance(sink, list) else [sink]:
             s.close()
+        if isinstance(src, NativeFileStream):
+            src.close()
 
     print(
         f"{args.mod}: {stats.samples_in / 1e6:.2f} M RF samples -> "

@@ -1,0 +1,55 @@
+"""Reference of ``fm_receiver`` (one FM station from a wide capture):
+wire format to complex, a mixer that brings the station to 0 Hz, the RF
+lowpass (Parks-McClellan, designed again here) decimated to the quad rate,
+the discriminator, one-pole de-emphasis and the rational resampler to the
+audio rate.  Each stage is the plain sum of ``dsp``; nothing of the
+program is imported or read.
+"""
+
+from __future__ import annotations
+
+import math
+from fractions import Fraction
+
+import numpy as np
+import torch
+
+from sdrbench.reference import design, dsp
+
+
+def plan(ref: dict) -> dict:
+    """The rates and taps a configuration's ``reference`` section implies."""
+    fs, cw = float(ref["rf_sample_rate"]), float(ref["channel_width"])
+    down = int(fs // (2.0 * cw))
+    quad = fs / down
+    rf_taps = design.lowpass_taps(fs, cw / 2.0, cw / 2.0, ref["db_attenuation"], dtype=np.float64)
+    if len(rf_taps) != ref["rf_taps"]:
+        raise ValueError(f"the RF lowpass came out with {len(rf_taps)} taps, the configuration says {ref['rf_taps']}")
+    ratio = Fraction(float(ref["audio_rate"]) / quad).limit_denominator(1000)
+    up, dn = ratio.numerator, ratio.denominator
+    return {
+        "down": down, "quad": quad, "rf_taps": rf_taps, "up": up, "dn": dn,
+        "audio_taps": dsp.resampler_taps(up, dn, ref["db_attenuation"]),
+        "offset": Fraction(int(ref["freq_offset"]), int(fs)),
+        "gain": quad / (2.0 * math.pi * cw),
+        "tau": float(ref["deemphasis_tau"]),
+    }
+
+
+def memory(p: dict) -> int:
+    """Input samples an output depends on: the RF taps, then at the quad
+    rate the discriminator's one sample, the de-emphasis sum and the
+    resampler's taps."""
+    quad = 1 + dsp.one_pole_taps(p["tau"], p["quad"]) + -(-len(p["audio_taps"]) // p["up"])
+    return len(p["rf_taps"]) + quad * p["down"]
+
+
+def decode(ref: dict, p: dict, iq: torch.Tensor, start: int, dtype) -> torch.Tensor:
+    """Audio of the wire samples ``iq`` (the stream's samples from index
+    ``start`` on), decoded from rest in ``dtype``."""
+    x = dsp.int8_words(iq, dtype) if ref["input_format"] == "int8" else dsp.cf32(iq, dtype)
+    x = dsp.mix(x, p["offset"], start)
+    x = dsp.fir_decimate(x, p["rf_taps"], p["down"])
+    y = dsp.fm_discriminate(x, p["gain"])
+    y = dsp.one_pole(y, p["tau"], p["quad"])
+    return dsp.resample(y, p["up"], p["dn"], p["audio_taps"])

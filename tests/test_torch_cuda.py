@@ -1128,3 +1128,176 @@ def test_runner_without_buffers_is_on_the_card(cuda, rng):
     np.testing.assert_allclose(sink.result(), np.concatenate(ref), rtol=0, atol=1e-5)
     assert queues.MergedRunner({"a": chain}).devices == {"a": cuda}
     assert queues._resolve_device({}) == cuda
+
+
+#: the benchmark's two chains at their widths, on cf32 ticks of 1,280,000:
+#: the WBFM receiver (K1 in ``shiftfir``) and the FM band's 100-channel bank
+TRACED = {
+    "wbfm": lambda: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM, 48000.0)[0],
+                     lambda rng, n: np.split(fm_tone(rng, n * 1_280_000, 20e6, 2.5e6, 75e3), n)),
+    "bank100": lambda: (multichannel.fm_channel_bank(20e6, 100, 48000.0)[0],
+                        lambda rng, n: bank_ticks(n, 1_280_000, fs=20e6, m=100)),
+}
+
+
+DTOD = "Memcpy DtoD (Device -> Device)"
+
+
+def device_records(fn):
+    """The names of the card's records while ``fn()`` runs, in order."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    recs = [(e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+            if str(e.device_type()).endswith("CUDA")]
+    return [name for _, name in sorted(recs)]
+
+
+@pytest.mark.parametrize("label", list(TRACED))
+def test_tracing_keeps_the_captured_audio_bit_for_bit(cuda, rng, label):
+    """Eight ticks and a short one through the runner, untraced and with a
+    tracer: the audio bit for bit, the same launches; the tracer holds a
+    row a tick (two eager, one capture, six replays) and a span of each
+    runner layer a block."""
+    from tpusdr_torch.utils.tracing import Tracer
+
+    block, make = TRACED[label]()
+    block.to(cuda)
+    ticks = make(rng, 8)
+    ticks = ticks + [ticks[0][: len(ticks[0]) // 2]]
+    plain, plain_counts, runner, _ = runner_audio(block, ticks, None, device=cuda)
+    assert runner.tracer is None
+    tr = Tracer()
+    traced, counts, runner, _ = runner_audio(block, ticks, None, device=cuda, tracer=tr)
+    assert counts == plain_counts
+    assert traced.shape == plain.shape and np.array_equal(traced, plain)
+    s = tr.summary()
+    assert (s["ticks"]["eager"], s["ticks"]["capture"], s["ticks"]["replay"]) == (2, 1, 6)
+    assert s["counters"]["captures"] == 1 and s["counters"]["eager_ticks"] == 2 and s["counters"]["blocks"] == 9
+    for name in ("source", "upload", "queue", "step", "fetch", "drain_wait", "sink", "step.copy_in", "step.replay"):
+        assert s["spans"][name]["count"] >= 7, name
+    assert s["clock"]["device"] == str(cuda) and s["clock"]["uncertainty_ns"] < 1e5
+
+
+@pytest.mark.parametrize("label", list(TRACED))
+def test_stage_times_account_for_the_replay_on_cuda_events(cuda, rng, label):
+    """Replays of a traced capture queued behind a spin kernel, each between
+    two CUDA events: per replay, the stages' in-tick times (first stamp to
+    last) against the events, medians within 5%."""
+    from tpusdr_torch.utils import tracing
+
+    chain, make = TRACED[label]()
+    chain.to(cuda)
+    xs = [torch.from_numpy(x).to(cuda) for x in make(rng, 4)]
+    tr = tracing.Tracer()
+    step = CapturedStep(chain, tracer=tr)
+    state = chain.init_state(device=cuda)
+    for x in xs[:2]:
+        state, _ = step(state, x)
+    cap = next(iter(step._graphs.values()))
+    n = 24
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    for j, (e0, e1) in enumerate(events):
+        cap.x.copy_(xs[j % len(xs)])
+        tr.claim(cap.layout, tracing.REPLAY)
+        e0.record()
+        cap.graph.replay()
+        e1.record()
+    torch.cuda.synchronize()
+    rows = tr.rows()
+    st = rows["stamps"][-n:]
+    width = len(rows["names"][rows["layout"][-1]])
+    stamped_us = (st[:, width - 1] - st[:, 0]) * 1e-3
+    event_us = np.array([e0.elapsed_time(e1) * 1e3 for e0, e1 in events])
+    assert rows["names"][rows["layout"][-1]] == ["start", *[k for k, _ in chain.blocks], "state"]
+    assert abs(np.median(stamped_us) - np.median(event_us)) < 0.05 * np.median(event_us), (
+        np.median(stamped_us), np.median(event_us))
+    stages = tr.summary()["stages"]
+    assert sum(v["p50_us"] for v in stages.values()) == pytest.approx(np.median(stamped_us), rel=0.05)
+
+
+def test_tracing_off_leaves_the_graph_node_for_node(cuda, rng):
+    """One replay of the WBFM tick captured without a tracer, and with one:
+    the untraced replay runs no stamp, the traced one the untraced records
+    and one stamp a boundary; the kernel launches counted are the same."""
+    from tpusdr_torch.utils import tracing
+
+    chain, make = TRACED["wbfm"]()
+    chain.to(cuda)
+    x = torch.from_numpy(make(rng, 1)[0]).to(cuda)
+    records, launches = [], []
+    for tr in (None, tracing.Tracer()):
+        step = CapturedStep(chain, tracer=tr)
+        state = chain.init_state(device=cuda)
+        for _ in range(2):
+            state, _ = step(state, x)
+        kernels.reset_launch_counts()
+        records.append(device_records(lambda: step(state, x)))
+        launches.append({w.__name__: w.launches for w in kernels.WRAPPERS})
+    # CUDA may run a small device-to-device copy node of a graph as its own
+    # kernel (memcpy32_post) in one graph and as a copy in another
+    plain, traced = ([DTOD if r == "memcpy32_post" else r for r in rs] for rs in records)
+    stamps = [r for r in traced if tracing.STAMP_KERNEL in r]
+    assert not any(tracing.STAMP_KERNEL in r for r in plain)
+    assert len(stamps) == len(chain.blocks) + 2
+    assert sorted(r for r in traced if tracing.STAMP_KERNEL not in r) == sorted(plain)
+    assert launches[0] == launches[1] and launches[0]["banded_fir"] == 1
+
+
+def test_a_refresh_counts_a_second_capture(cuda, rng):
+    """A traced runner retuned between two runs: each run captures once, and
+    the tracer's counters, read from each run's ``RunStats``, hold both
+    captures.  The step and the graph that the retune dropped are freed:
+    the tracer keeps no reference to them."""
+    import gc
+    import weakref
+
+    from tpusdr_torch.utils.tracing import Tracer
+
+    ticks = np.split(fm_tone(rng, 8 * 40000, 2e6, 300e3, 75e3), 8)
+    chain, _ = receiver.fm_receiver(2e6, 300e3, receiver.WBFM)
+    with Tracer() as tr:
+        runner = StreamRunner(chain.to(cuda))
+    sink = CollectSink()
+    state, first = runner.run(iter(ticks[:4]), sink)
+    state = copy.deepcopy(state)  # the static state aliases the graph's buffers
+    dropped = (weakref.ref(runner._step), weakref.ref(next(iter(runner._step._graphs.values()))))
+    runner.update_parameters("shiftfir", frequency=-310e3)
+    gc.collect()
+    assert [ref() for ref in dropped] == [None, None]
+    _, second = runner.run(iter(ticks[4:]), sink, state=state)
+    assert (first.captures, first.eager_ticks, second.captures, second.eager_ticks) == (1, 1, 1, 1)
+    s = tr.summary()
+    assert s["counters"]["captures"] == 2 and s["counters"]["eager_ticks"] == 2
+    assert (s["ticks"]["eager"], s["ticks"]["capture"], s["ticks"]["replay"]) == (2, 2, 4)
+
+
+def test_a_tracer_refuses_a_second_stream(cuda, rng):
+    """A tracer records the ticks of one stream: a ``MergedRunner`` whose
+    two pipelines share one queue records both into it, a row a tick in
+    the order issued; one on two queues raises ``ValueError`` at the
+    second stream's first tick."""
+    from tpusdr_torch.utils.tracing import Tracer
+
+    reg = queues.get_queue_registry()
+    q = {n: reg.create(f"trace-{n}", {"queueType": "cuda"}) for n in "ab"}
+    ticks = [torch.from_numpy(t).to(cuda) for t in np.split(fm_tone(rng, 4 * 40000, 2e6, 300e3, 75e3), 4)]
+    for queue in (q["a"], q):
+        with Tracer() as tr:
+            runner = queues.MergedRunner(
+                {n: receiver.fm_receiver(2e6, 300e3, receiver.WBFM)[0].to(cuda) for n in "ab"}, queue=queue)
+        states = runner.init_state()
+        if queue is q:
+            with pytest.raises(ValueError, match="one stream of one device"):
+                runner.step(states, {n: ticks[0] for n in "ab"})
+            continue
+        for x in ticks:
+            states, _ = runner.step(states, {n: x for n in "ab"})
+        runner.synchronize()
+        rows = tr.rows()
+        assert rows["claimed"] == 8 and rows["mode"].tolist() == [0, 0, 1, 1, 2, 2, 2, 2]
+        first = rows["stamps"][:, 0]
+        assert (np.diff(first) > 0).all()

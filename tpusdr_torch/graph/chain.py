@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from tpusdr_torch.graph.block import Block
+from tpusdr_torch.utils import tracing
 from tpusdr_torch.utils.numerics import lcm
 
 
@@ -110,9 +111,18 @@ class Chain(Block):
         return state
 
     def apply(self, state: dict, x: torch.Tensor):
+        tracer = tracing.local.tracer
+        if tracer is None:
+            return self._apply_stages(state, x, None)
+        with tracing.chain_tick(tracer, x) as tick:  # a stamp at each stage boundary
+            return self._apply_stages(state, x, tick)
+
+    def _apply_stages(self, state: dict, x: torch.Tensor, tick):
         new_state = {}
         for name, b in self.blocks:
             new_state[name], x = b.apply(state[name], x)
+            if tick is not None:
+                tick.stamp(name)
         return new_state, x
 
     def out_len(self, in_len: int) -> int:

@@ -23,12 +23,22 @@ tpusdr/graph/runner.py:44-331).
     name) the queue's stream is the compute stream: steps, captures,
     replays, fetches and their events are issued on it, and the copy
     stream's events are waited on by it;
-  * samples-in/out counters and wall-clock throughput (RunStats).
+  * samples-in/out counters, the step's captures and eager ticks, and
+    wall-clock throughput (RunStats);
+  * with a tracer (``utils/tracing.py``: one active when the runner or the
+    step is built, or ``tracer=``), host spans at each layer boundary of a
+    block (``source``, ``upload``, ``queue``, ``step``, ``fetch``,
+    ``drain_wait``, ``sink``; the step's ``step.copy_in`` and
+    ``step.replay``), each with the block's id, and the tick's stamps.
+    Without one, the cost is one test a tick in ``CapturedStep`` and a few
+    a block in the runner's loop, which takes its host timestamps either
+    way.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import queue as _queue
 import threading
 import time
@@ -42,6 +52,7 @@ from torch.utils import _pytree as pytree
 
 from tpusdr_torch import kernels
 from tpusdr_torch.graph.block import Block
+from tpusdr_torch.utils import tracing
 from tpusdr_torch.utils.logging import get_logger
 from tpusdr_torch.utils.numerics import round_up
 
@@ -64,6 +75,10 @@ class RunStats:
     wall_seconds: float = 0.0
     #: per-output-port sample counts; samples_out is the first port's
     samples_out_ports: list = field(default_factory=list)
+    #: the captured step's captures (a recapture after ``refresh`` counts)
+    #: and ticks run eager, over the run
+    captures: int = 0
+    eager_ticks: int = 0
 
     @property
     def msps_in(self) -> float:
@@ -107,6 +122,7 @@ def step_in_place(block: Block, static_state, static_x: torch.Tensor):
                 raise TypeError(f"{_name(block)}: a state leaf changed from {d.dtype}{list(d.shape)} "
                                 f"to {s.dtype}{list(s.shape)} in a step")
             d.copy_(s)
+    tracing.stamp_boundary("state")  # the carry's write-back, when a tracer stamps the tick
     return y
 
 
@@ -142,8 +158,9 @@ class _Capture:
     """One captured tick: the graph, its static state, input and outputs,
     and the kernel launches it replays."""
 
-    def __init__(self, graph, state, x, y, launches):
+    def __init__(self, graph, state, x, y, launches, layout=None):
         self.graph, self.state, self.x, self.y, self.launches = graph, state, x, y, launches
+        self.layout = layout  # the tracer's layout of the tick's stamps, if traced
 
     def load(self, state) -> bool:
         """Copy ``state`` into the static buffers; False if its structure,
@@ -176,25 +193,41 @@ class CapturedStep:
     graph's static buffers: they hold until the next call.
 
     Each kernel wrapper's ``launches`` counts executions: the launches
-    recorded at capture are taken back and added again at every replay.
-    A capture that fails raises ``RuntimeError`` naming the block."""
+    recorded at capture are taken back and added again at every replay;
+    ``captures`` and ``eager_ticks`` count the step's captures and eager
+    ticks.  A capture that fails raises ``RuntimeError`` naming the block.
 
-    def __init__(self, block: Block, stream: "torch.cuda.Stream | None" = None):
+    With a ``tracer`` (or one active when the step is built) the capture
+    holds the tick's stamps, each replay fills a row of the tracer's ring,
+    and the static-input copy and the launch are spans (``step.copy_in``,
+    ``step.replay``); without one the graph is the untraced graph."""
+
+    def __init__(self, block: Block, stream: "torch.cuda.Stream | None" = None, tracer=None):
         self.block = block
         self.stream = stream
         self._warm: set = set()
         self._graphs: dict = {}
+        self.captures = 0
+        self.eager_ticks = 0
+        self.tracer = tracer if tracer is not None else tracing.current()
 
     def __call__(self, state, x: torch.Tensor):
         key = (tuple(x.shape), x.dtype)
         cap = self._graphs.get(key)
+        captured = False
         if cap is None and key not in self._warm:
             self._warm.add(key)
-            return self.block.apply(state, x)
+            self.eager_ticks += 1
+            with tracing.using(self.tracer):  # a traced Chain stamps and claims its row
+                return self.block.apply(state, x)
         if cap is None or (state is not cap.state and not cap.load(state)):
             cap = self._graphs[key] = self._capture(state, x)
-        cap.x.copy_(x)
-        cap.graph.replay()
+            captured = True
+        if self.tracer is None:
+            cap.x.copy_(x)
+            cap.graph.replay()
+        else:
+            self.tracer.replay(cap, x, captured)
         for w, n in cap.launches:
             w.launches += n
         return cap.state, cap.y
@@ -204,18 +237,26 @@ class CapturedStep:
         static_x = x.clone()
         before = [w.launches for w in kernels.WRAPPERS]
         graph = torch.cuda.CUDAGraph()
+        replay_stream = None
+        if self.tracer is not None:
+            # the replays run on the queue's stream, else on the one current now
+            replay_stream = self.stream if self.stream is not None else torch.cuda.current_stream(x.device)
+            self.tracer.ring(x.device, replay_stream)  # made before the capture, so that no replay clears it
         try:
             # thread_local: the runner's upload thread may allocate and copy
             # on its own stream while this thread captures
-            with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
-                y = step_in_place(self.block, static_state, static_x)
+            with tracing.capturing(self.tracer, replay_stream) as tick:
+                with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
+                    y = step_in_place(self.block, static_state, static_x)
         except Exception as e:
             raise RuntimeError(f"capture of {_name(self.block)} failed: {e}") from e
         finally:
             recorded = [(w, w.launches - n) for w, n in zip(kernels.WRAPPERS, before)]
             for w, n in zip(kernels.WRAPPERS, before):
                 w.launches = n
-        return _Capture(graph, static_state, static_x, y, [(w, n) for w, n in recorded if n])
+        self.captures += 1
+        layout = tick.layout if tick is not None else None
+        return _Capture(graph, static_state, static_x, y, [(w, n) for w, n in recorded if n], layout)
 
 
 class StreamRunner:
@@ -225,7 +266,7 @@ class StreamRunner:
     no card raise ``ValueError`` unless ``device='cpu'`` is named)."""
 
     def __init__(self, block: Block, pipeline_depth: int = 2, device=None, upload_depth: int = 2,
-                 queue=None, capture: bool | None = None):
+                 queue=None, capture: bool | None = None, tracer=None):
         """``upload_depth``: how many ticks the upload thread may stage
         ahead of compute (0 uploads inline); it bounds the device memory of
         in-flight inputs.  ``queue``: a CommandQueue or a registered queue
@@ -233,8 +274,12 @@ class StreamRunner:
         stream becomes the compute stream.  ``capture``: None replays one
         captured CUDA graph a tick on a CUDA device and steps eagerly on the
         CPU (which has no graphs); False keeps the eager step on the card
-        (for comparison); True on the CPU raises ``ValueError``."""
+        (for comparison); True on the CPU raises ``ValueError``.
+        ``tracer``: a ``utils.tracing.Tracer`` to record into (default: the
+        one active on this thread now, if any)."""
         self.block = block
+        self.tracer = tracer if tracer is not None else tracing.current()
+        self._retired = [0, 0]  # captures and eager ticks of the steps that refresh dropped
         if isinstance(queue, str):
             from tpusdr_torch.graph.queues import get_queue_registry
 
@@ -266,10 +311,22 @@ class StreamRunner:
         """``self._step(state, x) -> (state, y)``: the captured step
         (``CapturedStep``, captured on the queue's stream when there is a
         queue) or, without capture, ``block.apply``."""
+        old = getattr(self, "_step", None)
+        if isinstance(old, CapturedStep):
+            self._retired[0] += old.captures
+            self._retired[1] += old.eager_ticks
         if self.capture:
-            self._step = CapturedStep(self.block, self.queue.stream if self.queue is not None else None)
+            self._step = CapturedStep(self.block, self.queue.stream if self.queue is not None else None,
+                                      tracer=self.tracer)
         else:
             self._step = self.block.apply
+
+    def _step_counts(self) -> tuple[int, int]:
+        """Captures and eager ticks of every step this runner has had."""
+        step = self._step
+        if isinstance(step, CapturedStep):
+            return self._retired[0] + step.captures, self._retired[1] + step.eager_ticks
+        return self._retired[0], self._retired[1]
 
     def refresh(self) -> None:
         """Drop every capture after ``block.update_parameters``, as the JAX
@@ -363,17 +420,28 @@ class StreamRunner:
         if len(posts) != n_ports:
             raise ValueError(f"{len(posts)} postprocessors for {n_ports} sinks")
         stats = RunStats(samples_out_ports=[0] * n_ports)
+        counts0 = self._step_counts()
         on_cuda = self.device.type == "cuda"
         copy_stream = torch.cuda.Stream(self.device) if on_cuda else None
         compute_stream = torch.cuda.current_stream(self.device) if on_cuda else None
         granule = self.block.granule
         pending: deque = deque()
+        tr = self.tracer
+        base = 0
+        if tr is not None:
+            # block ids unique across runs; the run's counters read at summary
+            base = tr.run_base()
+            tr.count_from(stats, ("blocks", "samples_in", "samples_out", "captures", "eager_ticks"))
+            source = tracing.timed_source(source, tr, base)
 
         def drain(item) -> None:
-            outs, n_in, n_padded = item[0], item[1], item[2]
+            outs, n_in, n_padded, _, bid = item
             for port, ((host, ev), snk, post) in enumerate(zip(outs, sinks, posts)):
                 if ev is not None:
+                    t_wait = tracing.now()
                     ev.synchronize()
+                    if tr is not None:
+                        tr.span("drain_wait", bid, t_wait)
                 out = host.numpy()
                 if n_in != n_padded:
                     # the padded last block: each port keeps the share of its
@@ -381,7 +449,10 @@ class StreamRunner:
                     out = out[..., : out.shape[-1] * n_in // n_padded]
                 if post is not None:
                     out = post(out)
+                t_sink = tracing.now()
                 snk.write(out)
+                if tr is not None:
+                    tr.span("sink", bid, t_sink)
                 stats.samples_out_ports[port] += out.shape[-1]
 
         def bounded():
@@ -413,8 +484,12 @@ class StreamRunner:
         stop = threading.Event()
 
         def staged_inline():
-            for n, raw in padded():
-                yield n, self._upload(raw, copy_stream)
+            for i, (n, raw) in enumerate(padded(), base):
+                t_up = tracing.now()
+                item = self._upload(raw, copy_stream)
+                if tr is not None:
+                    tr.span("upload", i, t_up)
+                yield n, item
 
         if self.upload_depth > 0:
             uq: _queue.Queue = _queue.Queue(maxsize=self.upload_depth)
@@ -446,8 +521,11 @@ class StreamRunner:
             th.start()
 
             def staged():
-                while True:
+                for i in itertools.count(base):
+                    t_q = tracing.now()
                     n, item = uq.get()
+                    if tr is not None:
+                        tr.span("queue", i, t_q)
                     if n is _END:
                         if item is not None:
                             raise item
@@ -459,27 +537,40 @@ class StreamRunner:
             blocks = staged_inline()
 
         try:
-            for n_in, (x, ev, host_in) in blocks:
-                if ev is not None:
-                    compute_stream.wait_event(ev)
-                    x.record_stream(compute_stream)
-                state, y = self._step(state, x)
-                stats.blocks += 1
-                stats.samples_in += n_in
-                ys = y if isinstance(y, tuple) else (y,)
-                if len(ys) != n_ports:
-                    raise ValueError(f"block produced {len(ys)} outputs but {n_ports} sinks given")
-                # host_in stays referenced until this tick is drained
-                pending.append(([self._fetch(yp) for yp in ys], n_in, x.shape[-1], host_in))
-                if len(pending) > self.pipeline_depth:
+            with tracing.using(tr):
+                for n_in, (x, ev, host_in) in blocks:
+                    bid = base + stats.blocks
+                    if tr is not None:
+                        tr.block = bid  # the id of the rows the step claims
+                    t_step = tracing.now()
+                    if ev is not None:
+                        compute_stream.wait_event(ev)
+                        x.record_stream(compute_stream)
+                    state, y = self._step(state, x)
+                    t_fetch = tracing.now()
+                    stats.blocks += 1
+                    stats.samples_in += n_in
+                    ys = y if isinstance(y, tuple) else (y,)
+                    if len(ys) != n_ports:
+                        raise ValueError(f"block produced {len(ys)} outputs but {n_ports} sinks given")
+                    fetched = [self._fetch(yp) for yp in ys]
+                    if tr is not None:
+                        tr.span("step", bid, t_step, t_fetch)
+                        tr.span("fetch", bid, t_fetch)
+                    # host_in stays referenced until this tick is drained
+                    pending.append((fetched, n_in, x.shape[-1], host_in, bid))
+                    if len(pending) > self.pipeline_depth:
+                        drain(pending.popleft())
+                while pending:
                     drain(pending.popleft())
-            while pending:
-                drain(pending.popleft())
         finally:
             stop.set()
 
         stats.samples_out = stats.samples_out_ports[0]
         stats.wall_seconds = time.perf_counter() - t0
+        counts = self._step_counts()
+        stats.captures = counts[0] - counts0[0]
+        stats.eager_ticks = counts[1] - counts0[1] if self.capture else stats.blocks
         log.info(
             "stream done: %d blocks, %.2f Msps in, %.2f Msps out",
             stats.blocks, stats.msps_in, stats.msps_out,

@@ -115,6 +115,8 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_shift_sum_smem.restype = i64
         lib.tpusdr_max_smem_optin.argtypes = [i]
         lib.tpusdr_max_smem_optin.restype = i64
+        lib.tpusdr_stamp.argtypes = [p, p, i64, i, i, i, p]
+        lib.tpusdr_stamp.restype = i
         lib.tpusdr_error_string.argtypes = [i]
         lib.tpusdr_error_string.restype = ctypes.c_char_p
         _lib = lib

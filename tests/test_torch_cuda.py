@@ -1301,3 +1301,56 @@ def test_a_tracer_refuses_a_second_stream(cuda, rng):
         assert rows["claimed"] == 8 and rows["mode"].tolist() == [0, 0, 1, 1, 2, 2, 2, 2]
         first = rows["stamps"][:, 0]
         assert (np.diff(first) > 0).all()
+
+
+def test_live_runner_drains_each_block_as_its_tick_ends(cuda):
+    """The WBFM receiver at 20 Msps fed as a HackRF feeds it: blocks of
+    131,250 int8 samples handed over every 6.5625 ms for about a second.
+    The median time from a tick's end on the card (its last stamp, on the
+    host's clock; the audio's copy-out is queued right behind it) to the
+    start of its sink write is under 1 ms, nearly every tick is drained
+    early, and the audio is a backlogged run's bit for bit.  The backlogged
+    run, the blocks read from host memory, runs well above the radio's rate
+    and drains early only when it finds the upload queue empty: far fewer
+    of its ticks than the paced run's."""
+    import time
+
+    from tpusdr_torch.utils.tracing import Tracer
+
+    n, fs = 131_250, 20e6
+    period = n / fs
+    pool = list(SyntheticIqSource.fm(n, fs, carrier_offset=2.5e6, output_format="int8", num_blocks=16))
+    blocks = [pool[i % len(pool)] for i in range(int(1.0 / period))]
+    chain = receiver.fm_receiver(fs, 2.5e6, receiver.WBFM, 48000.0, input_format="int8")[0].to(cuda)
+
+    def paced():
+        t0 = time.perf_counter()
+        for i, b in enumerate(blocks):
+            wait = t0 + (i + 1) * period - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            yield b
+
+    def warmed(tracer=None):
+        runner = StreamRunner(chain, device=cuda, tracer=tracer)
+        runner.run(iter(pool[:3]), CollectSink())  # eager, captured, replayed
+        return runner
+
+    tr = Tracer()
+    live, sink = warmed(tr), CollectSink()
+    _, stats = live.run(paced(), sink)
+    ref = CollectSink()
+    _, backlog = warmed().run(iter(blocks), ref)
+    assert stats.blocks == backlog.blocks == len(blocks) and stats.early_drains >= len(blocks) - 2
+    print(f"backlog: {backlog.blocks} blocks, {backlog.early_drains} drained early, {backlog.msps_in:.1f} Msps")
+    assert backlog.early_drains < stats.early_drains and backlog.msps_in > 2 * fs / 1e6
+    assert np.array_equal(sink.result(), ref.result())
+
+    rows, sp = tr.rows(), tr.spans("sink")
+    widths = np.array([len(x) for x in rows["names"]])[rows["layout"]]
+    last = rows["host"][np.arange(len(widths)), widths - 1]
+    run = rows["id"].max() >> 32  # the paced run's blocks (the warm run's ids sit below)
+    done = {i: t for i, t in zip(rows["id"].tolist(), last.tolist()) if i >= 0 and i >> 32 == run}
+    hold_ms = [(t0 - done[i]) * 1e-6 for i, t0 in zip(sp["id"].tolist(), sp["t0"].tolist()) if i in done]
+    assert len(hold_ms) == len(blocks)
+    assert np.median(hold_ms) < 1.0, np.percentile(hold_ms, [50, 95])

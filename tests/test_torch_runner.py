@@ -10,6 +10,7 @@ skill's fit), and its audio within -80 dB error energy of the JAX CLI's
 
 import socket
 import threading
+import time
 import wave
 
 import numpy as np
@@ -145,6 +146,178 @@ def test_runner_raw_int8_raises():
     chain, _ = TR.am_receiver(2e6, 100e3, input_format="int8")
     with pytest.raises(TypeError, match="packed"):
         StreamRunner(chain, upload_depth=0).run(iter([np.zeros(500, np.int8)]), tsinks.NullSink())
+
+
+PACE_S = 0.025  # a radio's block period here, far longer than a tick of ``quick_chain``
+
+
+def quick_chain():
+    """A chain whose CPU tick takes well under a millisecond, with a
+    granule (4) and a rate change: AddConst, then a 3-tap FIR by 4."""
+    chain = Chain([("c", TB.AddConst(0.5))])
+    chain.stages["d"] = TB.Fir(np.ones(3, np.float32), 4, "Float")
+    chain._recompute_plan()
+    return chain
+
+
+def paced(blocks, log, period=PACE_S):
+    """``blocks`` one ``period`` apart, as a radio hands them over, each
+    logged as it is handed over.  The stream ends one period after its last
+    block, as a radio that is closed does (a file ends at once)."""
+    for k, b in enumerate(blocks):
+        time.sleep(period)
+        log.append(("yield", k))
+        yield b
+    time.sleep(period)
+
+
+class LogSink(tsinks.CollectSink):
+    """A CollectSink that logs each write."""
+
+    def __init__(self, log, tag="write"):
+        super().__init__()
+        self.log, self.tag = log, tag
+
+    def write(self, x):
+        self.log.append((self.tag, len(self.blocks)))
+        super().write(x)
+
+
+@pytest.mark.parametrize("upload_depth", [2, 0])
+def test_runner_drains_a_paced_block_before_the_next_arrives(upload_depth):
+    """Blocks 25 ms apart: each block's output reaches the sink before the
+    source hands over the next one (the depth alone would hold it until
+    block k+2 was stepped), and every tick is drained early."""
+    chain = quick_chain()
+    blocks = [np.arange(64, dtype=np.float32) + 64 * k for k in range(5)]
+    ref = chain_apply(chain, blocks)  # also fills the chain's caches
+    log = []
+    sink = LogSink(log)
+    runner = StreamRunner(chain, pipeline_depth=2, device="cpu", upload_depth=upload_depth)
+    _, stats = runner.run(paced(blocks, log), sink)
+    assert stats.blocks == 5 and stats.early_drains == 5
+    for k in range(4):
+        assert log.index(("write", k)) < log.index(("yield", k + 1)), log
+    for got, want in zip(sink.blocks, ref):
+        np.testing.assert_array_equal(got, want)
+
+
+class _Unfinished:
+    """A copy-out event that reports unfinished until it is waited on."""
+
+    def __init__(self):
+        self.done = False
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.done = True
+
+
+@pytest.mark.parametrize("upload_depth,pipeline_depth", [(2, 2), (0, 2), (1, 3)])
+def test_runner_drains_only_at_the_depth_while_ticks_run(monkeypatch, upload_depth, pipeline_depth):
+    """A source that is always ready and copies that never finish on their
+    own: tick k is drained right after tick k + depth is stepped, the last
+    ``depth`` at the stream's end, none early, and the audio is
+    ``Chain.apply``'s."""
+    chain, _ = TR.am_receiver(2e6, 100e3, input_format="int8")
+    ticks = list(SyntheticIqSource.am(50000, 2e6, 100e3, "int8", num_blocks=6))
+    runner = StreamRunner(chain, pipeline_depth, upload_depth=upload_depth)
+    log = []
+
+    def fetch(y):
+        log.append(("step", sum(e[0] == "step" for e in log)))
+        return y, _Unfinished()
+
+    monkeypatch.setattr(runner, "_fetch", fetch)
+    sink = LogSink(log)
+    _, stats = runner.run(iter(ticks), sink)
+    assert stats.blocks == 6 and stats.early_drains == 0
+    want = []
+    for k in range(6):
+        want.append(("step", k))
+        if k >= pipeline_depth:
+            want.append(("write", k - pipeline_depth))
+    want += [("write", k) for k in range(max(0, 6 - pipeline_depth), 6)]
+    assert log == want
+    for got, ref in zip(sink.blocks, chain_apply(chain, ticks)):
+        np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("upload_depth", [2, 0])
+def test_runner_drained_early_keeps_the_padded_tail(upload_depth):
+    """A paced stream whose last block is short: the tail is padded to the
+    granule and its output trimmed to what its real input owes, as in a
+    backlogged run."""
+    chain = quick_chain()
+    n = 3 * 64 + 30  # not a multiple of the granule (4)
+    words = np.arange(n, dtype=np.float32)
+    blocks = [words[k * 64 : (k + 1) * 64] for k in range(4)]
+    padded = np.zeros(4 * 64, np.float32)
+    padded[:n] = words
+    owed = n * chain.up // chain.down
+    ref = np.concatenate(chain_apply(chain, np.split(padded, 4)))[:owed]
+    sink = tsinks.CollectSink()
+    runner = StreamRunner(chain, device="cpu", upload_depth=upload_depth)
+    _, stats = runner.run(paced(blocks, [], 0.01), sink)
+    assert stats.early_drains == 4 and stats.samples_in == n and stats.samples_out == owed
+    np.testing.assert_array_equal(sink.result(), ref)
+
+
+class _Finished:
+    """A copy-out event that is already done, as a card's is soon after its tick."""
+
+    def query(self):
+        return True
+
+    def synchronize(self):
+        pass
+
+
+def test_runner_queue_span_holds_no_drain():
+    """Traced, a paced stream's ``queue`` spans (the wait for the upload
+    thread) begin again after each tick drained while waiting: none covers
+    a ``drain_wait`` or ``sink`` span, and there is one a block and one for
+    the stream's end."""
+    from tpusdr_torch.utils.tracing import Tracer
+
+    chain = quick_chain()
+    blocks = [np.arange(64, dtype=np.float32) + 64 * k for k in range(4)]
+    chain_apply(chain, blocks)
+    with Tracer() as tr:
+        runner = StreamRunner(chain, device="cpu")
+    runner._fetch = lambda y: (y, _Finished())
+    _, stats = runner.run(paced(blocks, [], 0.01), tsinks.CollectSink())
+    assert stats.early_drains == 4
+    sp = tr.spans()
+
+    def spans(name):
+        m = sp["name"] == sp["names"].index(name)
+        return list(zip(sp["t0"][m].tolist(), sp["t1"][m].tolist()))
+
+    queue, drains = spans("queue"), spans("drain_wait") + spans("sink")
+    assert len(queue) == 5 and len(drains) == 8
+    for a, b in queue:
+        for c, d in drains:
+            assert d <= a or c >= b, (a, b, c, d)
+
+
+@pytest.mark.parametrize("upload_depth", [2, 0])
+def test_runner_drained_early_feeds_each_port(upload_depth):
+    """A paced two-port block: each port's sink gets its own samples, in
+    order, each block drained before the next arrives."""
+    blocks = [np.arange(8, dtype=np.float32) + 8 * i for i in range(4)]
+    log = []
+    a, b = LogSink(log, "a"), LogSink(log, "b")
+    runner = StreamRunner(_TwoPorts(), device="cpu", upload_depth=upload_depth)
+    _, stats = runner.run(paced(blocks, log, 0.01), [a, b], postprocess=[None, np.negative])
+    assert stats.early_drains == 4 and stats.samples_out_ports == [32, 32]
+    for k in range(3):
+        assert log.index(("b", k)) < log.index(("yield", k + 1)), log
+    x = np.concatenate(blocks)
+    np.testing.assert_array_equal(a.result(), x + 1.0)
+    np.testing.assert_array_equal(b.result(), -2.0 * x)
 
 
 def test_run_offline_flat_equals_scan_with_a_channel_axis(rng):

@@ -12,10 +12,15 @@ tpusdr/graph/runner.py:44-331).
     host memory and onto the device on a copy stream; the compute stream
     waits on each copy's event, and the pinned buffer stays referenced
     until the tick that read it has been fetched;
-  * outputs are fetched ``pipeline_depth`` ticks behind: each tick's output
-    is copied without blocking into pinned memory, with an event recorded
-    behind the copy, and the host waits on that event only when the sink
-    needs the samples (the reference's Waiter ping-pong, depth N);
+  * outputs are drained as soon as they are done: each tick's output is
+    copied without blocking into pinned memory, with an event recorded
+    behind the copy.  While the host waits for the next block, it polls
+    the oldest pending tick's events and drains each finished tick, in
+    order, into the sinks; a block that is ready is taken first, and at
+    most ``pipeline_depth`` ticks are in flight (the oldest is drained,
+    waiting on its events, when one more has been stepped: the reference's
+    Waiter ping-pong, depth N).  So a radio's audio leaves as soon as the
+    card is done with it, and a backlogged stream keeps its overlap;
   * the stream is read to its end: a last block that is not a multiple of
     the block's granule is zero-padded to one, and its output trimmed to
     the floor(n * up / down) samples its real input owes;
@@ -23,8 +28,9 @@ tpusdr/graph/runner.py:44-331).
     name) the queue's stream is the compute stream: steps, captures,
     replays, fetches and their events are issued on it, and the copy
     stream's events are waited on by it;
-  * samples-in/out counters, the step's captures and eager ticks, and
-    wall-clock throughput (RunStats);
+  * samples-in/out counters, the step's captures and eager ticks, the
+    ticks drained before the depth forced them, and wall-clock throughput
+    (RunStats);
   * with a tracer (``utils/tracing.py``: one active when the runner or the
     step is built, or ``tracer=``), host spans at each layer boundary of a
     block (``source``, ``upload``, ``queue``, ``step``, ``fetch``,
@@ -58,6 +64,12 @@ from tpusdr_torch.utils.numerics import round_up
 
 log = get_logger("runner")
 
+#: how long the host waits for the next block before it polls the pending
+#: ticks' events again (on an H100's host, 100 us gave a live radio's audio
+#: the narrowest tail: 200 us holds it longer, 50 us wakes the interpreter
+#: often enough to slow the upload thread)
+_POLL_S = 100e-6
+
 _TORCH_DTYPES = {
     np.dtype(np.complex64): torch.complex64,
     np.dtype(np.float32): torch.float32,
@@ -79,6 +91,9 @@ class RunStats:
     #: and ticks run eager, over the run
     captures: int = 0
     eager_ticks: int = 0
+    #: ticks drained because they were finished while the runner waited for
+    #: the next block, before ``pipeline_depth`` or the stream's end forced them
+    early_drains: int = 0
 
     @property
     def msps_in(self) -> float:
@@ -431,7 +446,7 @@ class StreamRunner:
         if tr is not None:
             # block ids unique across runs; the run's counters read at summary
             base = tr.run_base()
-            tr.count_from(stats, ("blocks", "samples_in", "samples_out", "captures", "eager_ticks"))
+            tr.count_from(stats, ("blocks", "samples_in", "samples_out", "captures", "eager_ticks", "early_drains"))
             source = tracing.timed_source(source, tr, base)
 
         def drain(item) -> None:
@@ -454,6 +469,16 @@ class StreamRunner:
                 if tr is not None:
                     tr.span("sink", bid, t_sink)
                 stats.samples_out_ports[port] += out.shape[-1]
+
+        def drain_finished() -> bool:
+            """Drain, in order, the pending ticks whose copies are done;
+            whether any was."""
+            drained = False
+            while pending and all(ev is None or ev.query() for _, ev in pending[0][0]):
+                drain(pending.popleft())
+                stats.early_drains += 1
+                drained = True
+            return drained
 
         def bounded():
             if max_blocks is not None and max_blocks <= 0:
@@ -520,10 +545,27 @@ class StreamRunner:
             th = threading.Thread(target=feeder, daemon=True)
             th.start()
 
+            def next_up():
+                """(when the wait began, the next uploaded block); while ticks
+                are pending, the finished ones are drained as it is waited
+                for, and the wait begins again after them."""
+                t_q = tracing.now()
+                while pending:
+                    try:
+                        return t_q, uq.get_nowait()
+                    except _queue.Empty:
+                        if drain_finished():
+                            t_q = tracing.now()
+                    if pending:
+                        try:
+                            return t_q, uq.get(timeout=_POLL_S)
+                        except _queue.Empty:
+                            continue
+                return t_q, uq.get()
+
             def staged():
                 for i in itertools.count(base):
-                    t_q = tracing.now()
-                    n, item = uq.get()
+                    t_q, (n, item) = next_up()
                     if tr is not None:
                         tr.span("queue", i, t_q)
                     if n is _END:
@@ -534,7 +576,13 @@ class StreamRunner:
 
             blocks = staged()
         else:
-            blocks = staged_inline()
+
+            def inline():
+                for item in staged_inline():
+                    yield item
+                    drain_finished()  # before the source is asked for the next block
+
+            blocks = inline()
 
         try:
             with tracing.using(tr):

@@ -10,7 +10,11 @@ Phases (each prints lines; any failure exits non-zero):
      main paths' shapes, with its time and the plain version's: D-FIR at
      the WBFM shape (history and prelude forms), at the single-stage AM
      shape (6665, /500), at the AM CLI's two stages (868, /250) and (46, /2)
-     and at the digital app's (728, /12); FM-fused at NBFM 2 Msps and at the single-stage
+     and at the digital app's (728, /12); FM-fused at NBFM 2 Msps, in its
+     channel form at the ``nbfm.capture`` cell's shape (the 57 marine
+     channels on one 1,278,750-sample tick at (728, /66), M = 19,375, with
+     random carried phases: one launch, 57 channel rows, the bound from
+     ``sdrbench/fm_fused_work.py``) and at the single-stage
      NBFM 20 Msps shape (9660, /666), each with the plan its rule picks; K4 at the AM shapes (868, /250) on a
      20 Msps tick, (46, /2) and (6665, /500) and at the JSON graph's
      (546, /50), each through the streaming call (the carried T-1 samples
@@ -477,6 +481,48 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
         fm_fused.fused_fm_demod,
         *fm_cost(ext.shape[0], Tf, Mf),
     )
+    # the channel form at the nbfm.capture cell's shape: the 57 marine
+    # channels every 25 kHz from -700 to +700 kHz, a station on each, on one
+    # tick behind its carried (T-1) + D samples, each channel's carried
+    # phase at random; the launch and channel-row counts from 0
+    from sdrbench.fm_fused_work import fm_fused_work
+    from tpusdr_torch import kernels
+
+    offsets_c, tick_c = [25e3 * k for k in range(-28, 29)], 1_278_750
+    Cc = len(offsets_c)
+    zc = sum(fm_signal(Hf + tick_c, 2e6, f, 5e3, seed=20 + j) for j, f in enumerate(offsets_c)) / Cc
+    ext_c = torch.from_numpy(zc.astype(np.complex64)).to(dev)
+    incs_c = torch.tensor([osc.freq_to_inc_u32(-f, 2e6) for f in offsets_c], dtype=torch.int64, device=dev)
+    ph_c = osc.as_phases(rng.integers(0, 2**32, Cc).tolist(), dev)
+    Mc = (ext_c.shape[0] - (Tf - 1)) // Df - 1
+    fc_plan = fm_fused.fm_fused_plan(Tf, Df, Mc, Cc)
+    fc_blocks = Cc * fm_fused.fm_fused_blocks(Mc, fc_plan)
+    print(f"phase 2 FM-fused channel form at (728, /66), C={Cc}, M={Mc}: {fc_plan}, {fc_blocks} blocks",
+          flush=True)
+    check(Mc == 19_375 and fc_plan == fm_fused.FmFusedPlan("phase", fm_fused.PHASE_TILE, Tf),
+          f"the nbfm.capture tick takes the phase-major form over {Cc} channels: M={Mc}, {fc_plan}")
+
+    def channels_kernel():
+        return fm_fused.fused_fm_demod(ext_c[Hf:], ftaps, Df, incs_c, ph_c, front.gain, history=ext_c[:Hf])
+
+    kernels.reset_launch_counts()
+    got_c = channels_kernel()
+    torch.cuda.synchronize()
+    counts_c = (fm_fused.fused_fm_demod.launches, fm_fused.fused_fm_demod.channel_rows)
+    check(counts_c == (1, Cc) and got_c.shape == (Cc, Mc),
+          f"the channel form: (launches, channel rows) {counts_c} and {tuple(got_c.shape)}, expected (1, {Cc})")
+    cmp["fm_channels"] = compare(
+        torch, card, f"FM-fused channel form T=728 D=66 C={Cc} M={Mc} {fc_plan}",
+        channels_kernel,
+        lambda: fm_fused.fused_fm_demod_plain(ext_c, ftaps, Df, incs_c, ph_c, front.gain, Mc),
+        fm_fused.fused_fm_demod,
+        *fm_fused_work(ext_c.shape[0], Tf, Mc, Cc),
+    )
+    cmp["fm_channels"]["launches"], cmp["fm_channels"]["channel_rows"] = counts_c
+    b_c = cmp["fm_channels"]
+    print(f"phase 2 FM-fused channel form C={Cc} M={Mc}: launches {counts_c[0]}, channel rows {counts_c[1]}, "
+          f"{b_c['ms'] * 1e3:.2f} us against a bound of {b_c['bound_ms'] * 1e3:.2f} us ({b_c['bound_by']}: "
+          f"{b_c['bytes']} B, {b_c['operations']} operations), plain {b_c['plain_ms'] * 1e3:.2f} us", flush=True)
     # F1: the single-stage NBFM 20 Msps shape
     Tn, Dn, Mn = 9660, 666, 625  # 625 outputs: one 416,250-sample tick
     Hn = (Tn - 1) + Dn
@@ -2194,6 +2240,9 @@ def main() -> int:
         {"name": "decim_fir (prelude form, WBFM fused a shard of 2, M=26,624)", "route": "cuda",
          "source": src + "decim_fir.cu", "replaces": "tpusdr/kernels/fir_banded_pallas.py:604",
          "launches": used["shard:banded_fir_prelude"], **_nums(shard_cmp["k2_shard"])},
+        {"name": "fm_fused (channel form, nbfm.capture C=57, M=19,375)", "route": "cuda",
+         "source": src + "fm_fused.cu", "replaces": "tpusdr/kernels/fm_pallas.py:205",
+         "launches": cmp["fm_channels"]["launches"], **_nums(cmp["fm_channels"])},
         {"name": "fm_fused (NBFM a shard of 8, M=2,513)", "route": "cuda", "source": src + "fm_fused.cu",
          "replaces": "tpusdr/kernels/fm_pallas.py:205",
          "launches": used["shard:fused_fm_demod"], **_nums(shard_cmp["k3_shard"])},

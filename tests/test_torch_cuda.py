@@ -1354,3 +1354,76 @@ def test_live_runner_drains_each_block_as_its_tick_ends(cuda):
     hold_ms = [(t0 - done[i]) * 1e-6 for i, t0 in zip(sp["id"].tolist(), sp["t0"].tolist()) if i in done]
     assert len(hold_ms) == len(blocks)
     assert np.median(hold_ms) < 1.0, np.percentile(hold_ms, [50, 95])
+
+
+#: the marine VHF band's 57 channels (nbfm_marine57): every 25 kHz, -700 to +700 kHz
+MARINE = [25e3 * k for k in range(-28, 29)]
+
+
+@pytest.mark.parametrize("C", [57, 1])
+def test_k3_channel_axis_matches_plain_and_single_channel_launches(cuda, rng, C):
+    """K3's channel form at (728, /66), M = 19,375 (the nbfm.capture tick),
+    [history, x] through the two pointers: one launch for C channels,
+    within 1e-5 * gain of the plain version's channel form, and each row bit
+    for bit the single-channel launch with that channel's increment and
+    carried phase (C = 1: the channel form against today's launch).  The
+    taps are the NBFM channel filter, so that each channel holds one
+    station."""
+    from tpusdr_torch.ops import design
+
+    T, D, M, gain = 728, 66, 19_375, 0.32
+    assert tfm.fm_fused_plan(T, D, M, C) == ("phase", tfm.PHASE_TILE, T)
+    h = torch.from_numpy(design.lowpass_taps(2e6, 7500.0, 7500.0, -60.0).astype(np.float32)).to(cuda)
+    assert h.shape[-1] == T
+    n = (T - 1) + (M + 1) * D
+    H = (T - 1) + D
+    offsets = MARINE if C == 57 else [100e3]
+    z = sum(fm_tone(rng, n, 2e6, f, 5e3) * (1.0 / len(offsets)) for f in offsets)
+    z = torch.from_numpy(z.astype(np.complex64)).to(cuda)
+    incs = [osc.freq_to_inc_u32(-f, 2e6) for f in offsets]
+    phases = [int(p) for p in rng.integers(0, 2**32, C)]
+    incs_t, phases_t = torch.tensor(incs, device=cuda), osc.as_phases(phases, cuda)
+    launches, rows = tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows
+    got = tfm.fused_fm_demod(z[H:], h, D, incs_t, phases_t, gain, history=z[:H])
+    assert (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows) == (launches + 1, rows + C)
+    assert got.shape == (C, M) and bool(torch.isfinite(got).all())
+    ref = tfm.fused_fm_demod_plain(z, h, D, incs_t, phases_t, gain, M)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * gain)
+    for c in range(C):
+        one = tfm.fused_fm_demod(z[H:], h, D, incs[c], osc.as_phase(phases[c], cuda), gain, history=z[:H])
+        assert torch.equal(got[c], one), c
+
+
+def test_nbfm_channels_captured_on_the_card_matches_cpu(cuda, rng):
+    """The NBFM channels' chain (15 of the marine channels, ticks of 165,000)
+    through a traced CapturedStep, tick by tick against the eager CPU chain:
+    one K3 launch and C channel rows a tick, eager, captured or replayed;
+    the traced summary holds the ``frontend`` and ``audio`` stages and
+    channel rows over launches = C."""
+    from tpusdr_torch.models import nbfm_channels
+    from tpusdr_torch.utils.tracing import Tracer
+
+    offsets = MARINE[::4]
+    C, tick = len(offsets), 8250 * 20
+    cpu_chain, _ = nbfm_channels(2e6, offsets)
+    gpu_chain = copy.deepcopy(cpu_chain).to(cuda)
+    z = sum(fm_tone(rng, 4 * tick, 2e6, f, 5e3) * 0.06 for f in offsets).astype(np.complex64)
+    ticks = np.split(z, 4)
+    cs, ref = cpu_chain.init_state(), []
+    for blk in ticks:
+        cs, cy = cpu_chain.apply(cs, torch.from_numpy(blk))
+        ref.append(cy.numpy())
+    kernels.reset_launch_counts()
+    with Tracer() as tr:
+        step = CapturedStep(gpu_chain)
+        gs = gpu_chain.init_state(device=cuda)
+        for k, blk in enumerate(ticks):
+            gs, gy = step(gs, torch.from_numpy(blk).to(cuda))
+            assert gy.shape == ref[k].shape == (C, tick * 4 // 1000)
+            assert err_db(ref[k], gy.cpu().numpy()) <= -60.0
+            assert (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows) == (k + 1, C * (k + 1))
+    assert step.eager_ticks == 1 and step.captures == 1
+    s = tr.summary()
+    assert {"frontend", "audio"} <= set(s["stages"])
+    assert s["counters"]["launches"]["fused_fm_demod"] == 4
+    assert s["counters"]["channel_rows"]["fused_fm_demod"] == 4 * C

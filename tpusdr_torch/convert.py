@@ -56,7 +56,7 @@ def state_from_numpy(tree, device=None):
         return tuple(state_from_numpy(v, device) for v in tree)
     a = np.asarray(tree)
     if a.dtype == np.uint32:
-        return osc.as_phase(int(a), device)
+        return osc.as_phase(int(a), device) if a.ndim == 0 else osc.as_phases(a.tolist(), device)
     if a.dtype == np.int32:
         return torch.from_numpy(a.astype(np.int64)).to(device)
     return cplx.from_numpy(a, device)

@@ -4,7 +4,8 @@ Int16ToFloat :99, IqToComplex :111, Fir :168, Multiply :287,
 FreqShift :298, CosineMix :335, FreqShiftFir :372, FusedFmDemod :526, QuadFmDemod :774,
 QuadAmDemod and the "QuadDemod" node :796-819, Magnitude :822,
 AddConst :832, AddConstToVectorLength :846, DcBlock :857,
-SampleCountMonitor :886, Deemphasis :901, Resampler :953, Channelizer :1006).
+SampleCountMonitor :886, Deemphasis :901, Resampler :953, Channelizer :1006),
+and FusedFmChannels, the FM-fused kernel's channel axis as a block.
 
 Complex streams are complex64 tensors; NCO phases are 0-d int64 tensors
 holding the uint32 value (``ops/osc.py``), on the stream's device, so a
@@ -522,6 +523,74 @@ class FusedFmDemod(Block):
 
     def advance_state(self, state, num_samples):
         return {**state, "phase": osc.advance_phase(state["phase"], self.inc, num_samples)}
+
+
+@register_block("FusedFmChannels")
+class FusedFmChannels(Block):
+    """C FM channels of one stream in one FM-fused launch a tick (the
+    kernel's channel axis, ``kernels/fm_fused.py``): for each of the C
+    ``frequencies``, ``FusedFmDemod``'s FM-fused branch (shift ->
+    decimating FIR -> FM discriminator) on the same input samples and taps;
+    (C, M) out.  The banded kernels have no channel axis, so every shape
+    takes the FM-fused kernel.  (No counterpart in the JAX package.)
+
+    Carry: ``tail``, the (T-1)+D samples before the tick that every channel
+    reads, and ``phase``, the C uint32 phases of its first sample ((C,)
+    int64).  The C increments are the buffer ``incs``, which a retune to as
+    many frequencies writes in place, so a captured launch reads the new
+    ones."""
+
+    out_dtype = torch.float32
+    adds_channel_axis = True
+
+    def __init__(self, sample_rate: float, frequencies, taps, decimation: int, gain: float):
+        super().__init__()
+        self.sample_rate = float(sample_rate)
+        self._tuned = self.frequencies = tuple(float(f) for f in frequencies)
+        if not self.frequencies:
+            raise ValueError("FusedFmChannels: no channel frequencies")
+        self.num_channels = len(self.frequencies)
+        self.decimation = int(decimation)
+        self.gain = float(gain)
+        self.register_buffer("taps", torch.from_numpy(np.asarray(taps, np.float32)))
+        self.register_buffer("incs", torch.zeros(self.num_channels, dtype=torch.int64))
+        self._params_updated(frozenset({"taps", "frequencies"}))
+
+    def _params_updated(self, names):
+        if names & {"taps", "decimation"}:
+            self.decimation = self.down = int(self.decimation)
+            self.history = (self.taps.shape[-1] - 1) + self.decimation  # a carry sized for the old taps is refused
+        if names & {"frequencies", "sample_rate"}:
+            frequencies = tuple(float(f) for f in np.atleast_1d(self.frequencies))
+            if len(frequencies) != self.num_channels:
+                self.frequencies = self._tuned
+                raise ValueError(f"FusedFmChannels: a retune keeps the number of channels "
+                                 f"({self.num_channels}); rebuild the block instead")
+            self._tuned = self.frequencies = frequencies
+            self.inc = tuple(osc.freq_to_inc_u32(f, self.sample_rate) for f in frequencies)
+            self.incs.copy_(torch.tensor(self.inc, dtype=torch.int64))
+
+    def init_state(self, batch_shape=(), device=None):
+        if batch_shape:
+            raise ValueError("FusedFmChannels: the channels are its only batch axis")
+        return {
+            "tail": cplx.zeros((self.history,), device),
+            "phase": osc.as_phases([-inc * self.history for inc in self.inc], device),
+        }
+
+    def apply(self, state, x):
+        tail = state["tail"]
+        _check_carry(self, tail.shape[-1], self.history)
+        y = fused_fm_demod(x, self.taps, self.decimation, self.incs, state["phase"], self.gain, history=tail)
+        n, L = x.shape[-1], self.history
+        new_tail = x[n - L :].clone() if n >= L else torch.cat([tail, x])[-L:].clone()
+        return {"tail": new_tail, "phase": osc.advance_phase(state["phase"], self.incs, n)}, y
+
+    def shift_state(self, state, offset_samples):
+        return {**state, "phase": osc.advance_phase(state["phase"], self.incs, offset_samples)}
+
+    def advance_state(self, state, num_samples):
+        return {**state, "phase": osc.advance_phase(state["phase"], self.incs, num_samples)}
 
 
 @register_block("QuadFmDemod")

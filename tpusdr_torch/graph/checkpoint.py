@@ -81,7 +81,8 @@ def load_state(path: str, like: Any) -> Any:
             if arr.dtype != ref.dtype:
                 raise ValueError(f"checkpoint leaf {key!r} has dtype {arr.dtype}, expected {ref.dtype}")
             if osc.is_phase(proto):
-                loaded[key] = osc.as_phase(int(arr), proto.device)
+                loaded[key] = osc.as_phase(int(arr), proto.device) if arr.ndim == 0 else osc.as_phases(
+                    arr.tolist(), proto.device)
             else:
                 loaded[key] = torch.from_numpy(arr.copy()).to(proto.device)
     return _rebuild(like, "", loaded)

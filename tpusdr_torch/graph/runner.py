@@ -171,7 +171,8 @@ def _name(block: Block) -> str:
 
 class _Capture:
     """One captured tick: the graph, its static state, input and outputs,
-    and the kernel launches it replays."""
+    and what it adds to the kernel wrappers' counters at each replay
+    (``launches``: (wrapper, counter, n) triples)."""
 
     def __init__(self, graph, state, x, y, launches, layout=None):
         self.graph, self.state, self.x, self.y, self.launches = graph, state, x, y, launches
@@ -208,7 +209,8 @@ class CapturedStep:
     graph's static buffers: they hold until the next call.
 
     Each kernel wrapper's ``launches`` counts executions: the launches
-    recorded at capture are taken back and added again at every replay;
+    recorded at capture are taken back and added again at every replay
+    (and so are the wrappers' other counters, ``kernels.COUNTERS``);
     ``captures`` and ``eager_ticks`` count the step's captures and eager
     ticks.  A capture that fails raises ``RuntimeError`` naming the block.
 
@@ -243,14 +245,14 @@ class CapturedStep:
             cap.graph.replay()
         else:
             self.tracer.replay(cap, x, captured)
-        for w, n in cap.launches:
-            w.launches += n
+        for w, f, n in cap.launches:
+            setattr(w, f, getattr(w, f) + n)
         return cap.state, cap.y
 
     def _capture(self, state, x: torch.Tensor) -> _Capture:
         static_state = static_copy(self.block, state)
         static_x = x.clone()
-        before = [w.launches for w in kernels.WRAPPERS]
+        before = kernels.counts()
         graph = torch.cuda.CUDAGraph()
         replay_stream = None
         if self.tracer is not None:
@@ -266,12 +268,12 @@ class CapturedStep:
         except Exception as e:
             raise RuntimeError(f"capture of {_name(self.block)} failed: {e}") from e
         finally:
-            recorded = [(w, w.launches - n) for w, n in zip(kernels.WRAPPERS, before)]
-            for w, n in zip(kernels.WRAPPERS, before):
-                w.launches = n
+            recorded = [(w, f, getattr(w, f) - n) for (w, f), n in before.items()]
+            for (w, f), n in before.items():
+                setattr(w, f, n)
         self.captures += 1
         layout = tick.layout if tick is not None else None
-        return _Capture(graph, static_state, static_x, y, [(w, n) for w, n in recorded if n], layout)
+        return _Capture(graph, static_state, static_x, y, [r for r in recorded if r[2]], layout)
 
 
 class StreamRunner:

@@ -13,7 +13,9 @@
     shifted reads (csrc/staging_probes.cu), replacing the probes W4, X1 and
     X2 of benchmarks/pallas_mosaic_probes.py.
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``; the FM-fused
+wrapper also counts the channel rows its launches write, in
+``fused_fm_demod.channel_rows``.
 """
 
 from tpusdr_torch.kernels import copy_floor as _copy_floor  # the module keeps its name here
@@ -28,6 +30,14 @@ WRAPPERS = (
 )
 
 
+COUNTERS = ("launches", "channel_rows")  # what a wrapper may count
+
+
+def counts() -> dict:
+    """Every counter of every wrapper: {(wrapper, counter): value}."""
+    return {(w, f): getattr(w, f) for w in WRAPPERS for f in COUNTERS if hasattr(w, f)}
+
+
 def reset_launch_counts() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+    for w, f in counts():
+        setattr(w, f, 0)

@@ -88,7 +88,7 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_decim_fir_smem.argtypes = [i, i, i, i, i, i]
         lib.tpusdr_decim_fir_smem.restype = i64
         u32 = ctypes.c_uint32
-        fm_head = [p, i64, p, i64, p, i, i, u32, p, u32, ctypes.c_float, i64, i, i, i]
+        fm_head = [p, i64, p, i64, p, i, i, u32, p, p, u32, ctypes.c_float, i64, i, i, i, i]
         lib.tpusdr_fm_fused.argtypes = [*fm_head, p, i, p]
         lib.tpusdr_fm_fused.restype = i
         lib.tpusdr_fm_fused_probe.argtypes = [*fm_head, i, p, i, p]

@@ -36,6 +36,15 @@
 // The arithmetic has two forms behind the one entry point; the wrapper's
 // rule (kernels/fm_fused.py, fm_fused_plan) picks by shape.
 //
+// Channels: one launch may demodulate C channels of the same s, each with
+// an NCO increment and a carried phase of its own, read from two device
+// arrays of C int64 words (the low 32 bits of each); channel c is
+// blockIdx.y and writes row c of a (C, M) output.  Every channel reads the
+// same s through the same two pointers.  With C = 1 and no increment array
+// the grid and every block are those of the single-channel launch.  Over
+// many channels the arithmetic, not the bytes, bounds the launch: each
+// channel mixes and filters the whole of s.
+//
 // Form 0, lanes across taps: one block per tile of 64, 32, 16 or 8
 // filtered samples over a contiguous window of (tile-1)*D + T samples; each
 // warp filters tile/8 samples at once (one tap load per tile/8 MACs, lanes
@@ -87,12 +96,13 @@ struct Args {
   int64_t N;
   const float* taps;
   int T, D;
-  uint32_t inc;
-  const int64_t* phase;  // the carried phase on the device, or null
-  uint32_t phase0;       // added to *phase (or alone where it is null)
+  uint32_t inc;          // every channel's increment where incs is null
+  const int64_t* incs;   // C increments on the device, or null
+  const int64_t* phase;  // C carried phases on the device, or null
+  uint32_t phase0;       // added to each carried phase (or alone where it is null)
   float gain;
   int64_t M;
-  float* out;
+  float* out;  // (C, M)
 };
 
 // (cos, sin) of the NCO phase: the uint32 phase read as a signed angle in
@@ -104,13 +114,25 @@ __device__ __forceinline__ float2 nco(uint32_t ph) {
   return make_float2(cs, sn);
 }
 
-// The NCO phase of s[0]: the carried phase, read from device memory when
-// the kernel runs (so a captured launch replays with its tick's phase),
-// plus the offset passed by value.  Each thread reads the same 8 bytes: one
-// broadcast load a warp, before the fill's wait.
+// The NCO phase of s[0] in the block's channel: the carried phase, read
+// from device memory when the kernel runs (so a captured launch replays
+// with its tick's phase), plus the offset passed by value.  Each thread
+// reads the same 8 bytes: one broadcast load a warp, before the fill's wait.
 __device__ __forceinline__ uint32_t start_phase(const Args& a) {
   return a.phase0 +
-         (a.phase ? static_cast<uint32_t>(__ldg(reinterpret_cast<const long long*>(a.phase))) : 0u);
+         (a.phase ? static_cast<uint32_t>(__ldg(reinterpret_cast<const long long*>(a.phase) + blockIdx.y))
+                  : 0u);
+}
+
+// The NCO increment of the block's channel.
+__device__ __forceinline__ uint32_t channel_inc(const Args& a) {
+  return a.incs ? static_cast<uint32_t>(__ldg(reinterpret_cast<const long long*>(a.incs) + blockIdx.y))
+                : a.inc;
+}
+
+// The block's channel's output row.
+__device__ __forceinline__ float* out_row(const Args& a) {
+  return a.out + static_cast<int64_t>(blockIdx.y) * a.M;
 }
 
 __device__ __forceinline__ float2 rotate(float2 s, float2 lo) {
@@ -128,6 +150,7 @@ __device__ __forceinline__ int64_t read_end(const Args& a) {
 // y[m0 + t] = gain * arg(v[t+1] conj v[t]) for the block's n_out outputs.
 __device__ __forceinline__ void discriminate(const float2* v, int n_out, int64_t m0,
                                              const Args& a) {
+  float* out = out_row(a);
   for (int t = threadIdx.x; t < n_out; t += kThreads) {
     const int64_t m = m0 + t;
     if (m < a.M) {
@@ -137,7 +160,7 @@ __device__ __forceinline__ void discriminate(const float2* v, int n_out, int64_t
       const float pi = c.y * b.x - c.x * b.y;
       // + 0.0f: arg(0) = 0 (atan2f(+-0, -0) would give +-pi); see
       // tpusdr_torch/ops/demod.py arg()
-      a.out[m] = a.gain * atan2f(pi, pr + 0.0f);
+      out[m] = a.gain * atan2f(pi, pr + 0.0f);
     }
   }
 }
@@ -156,7 +179,7 @@ __device__ __forceinline__ void mix_in_place(float2* win, int n, uint32_t ph0, u
 // A launch cut short for the probe: one thread a block stores a staged
 // sample, so that the parts before it are not dead code.
 __device__ __forceinline__ void part_sink(const float2* win, int64_t m0, const Args& a) {
-  if (threadIdx.x == 0 && m0 < a.M) a.out[m0] = win[blockIdx.x & 63].x;
+  if (threadIdx.x == 0 && m0 < a.M) out_row(a)[m0] = win[blockIdx.x & 63].x;
 }
 
 // ---- form 0: lanes across taps --------------------------------------------
@@ -178,6 +201,7 @@ __global__ void __launch_bounds__(kThreads) fm_fused_kernel(const Args a, int ch
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kOut;
   const int64_t end = read_end(a);
   const uint32_t ph0 = start_phase(a);
+  const uint32_t inc = channel_inc(a);
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -201,8 +225,7 @@ __global__ void __launch_bounds__(kThreads) fm_fused_kernel(const Args a, int ch
     commit_copies();
     wait_copies(0);
     if constexpr (kPart != kPartFill) {
-      mix_in_place(win, W, ph0 + static_cast<uint32_t>(base) * a.inc, a.inc,
-                   [](int i) { return i; });
+      mix_in_place(win, W, ph0 + static_cast<uint32_t>(base) * inc, inc, [](int i) { return i; });
     }
     __syncthreads();
     if constexpr (kPart != kPartAll) continue;
@@ -238,7 +261,7 @@ __global__ void __launch_bounds__(kThreads) fm_fused_kernel(const Args a, int ch
 }
 
 template <int kPerWarp, int kPart>
-cudaError_t launch_taps(const Args& a, int chunk, int64_t smem, cudaStream_t stream) {
+cudaError_t launch_taps(const Args& a, int C, int chunk, int64_t smem, cudaStream_t stream) {
   auto kernel = fm_fused_kernel<kPerWarp, kPart>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -247,7 +270,7 @@ cudaError_t launch_taps(const Args& a, int chunk, int64_t smem, cudaStream_t str
   }
   constexpr int kOut = kPerWarp * kWarps - 1;
   const int64_t blocks = (a.M + kOut - 1) / kOut;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a, chunk);
+  kernel<<<dim3(static_cast<unsigned>(blocks), C), kThreads, smem, stream>>>(a, chunk);
   return cudaGetLastError();
 }
 
@@ -269,13 +292,14 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kOut;
   const int64_t base = m0 * D;
   const uint32_t ph0 = start_phase(a);
+  const uint32_t inc = channel_inc(a);
   const Staging st = staging(win, rows * D, a.hist, a.H, a.x, base, read_end(a));
   stage_rows(st, win, rows * D, D, pitch, magic);
   stage_phase_taps(hq, a.taps, T, D, Q, magic);
   commit_copies();
   wait_copies(0);
   if constexpr (kPart != kPartFill) {
-    mix_in_place(win, rows * D, ph0 + static_cast<uint32_t>(base) * a.inc, a.inc,
+    mix_in_place(win, rows * D, ph0 + static_cast<uint32_t>(base) * inc, inc,
                  [=](int i) { return i + static_cast<int>(__umulhi(i, magic)) * (pitch - D); });
   }
   __syncthreads();
@@ -294,7 +318,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <int R, int kPart>
-cudaError_t launch_phase(const Args& a, int64_t smem, cudaStream_t stream) {
+cudaError_t launch_phase(const Args& a, int C, int64_t smem, cudaStream_t stream) {
   auto kernel = fm_fused_phase_kernel<R, kPart>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -303,7 +327,7 @@ cudaError_t launch_phase(const Args& a, int64_t smem, cudaStream_t stream) {
   }
   constexpr int kOut = kPhaseLanes * R - 1;
   const int64_t blocks = (a.M + kOut - 1) / kOut;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  kernel<<<dim3(static_cast<unsigned>(blocks), C), kThreads, smem, stream>>>(
       a, (a.T + a.D - 1) / a.D, div_magic(a.D));
   return cudaGetLastError();
 }
@@ -315,23 +339,24 @@ int64_t smem_bytes(int T, int D, int form, int nv, int chunk) {
 }
 
 template <int kPart>
-cudaError_t launch(const Args& a, int form, int nv, int chunk, cudaStream_t s) {
+cudaError_t launch(const Args& a, int C, int form, int nv, int chunk, cudaStream_t s) {
   if (a.M <= 0) return cudaSuccess;
+  if (C < 1 || C > 65535 || (C > 1 && a.phase == nullptr)) return cudaErrorInvalidValue;
   const int64_t smem = smem_bytes(a.T, a.D, form, nv, chunk);
   if (form == 1) {
     if (chunk != a.T || a.D < 2 || a.D > 65535) return cudaErrorInvalidValue;
     switch (nv) {
-      case kPhaseLanes * 5: return launch_phase<5, kPart>(a, smem, s);
-      case kPhaseLanes * 7: return launch_phase<7, kPart>(a, smem, s);
+      case kPhaseLanes * 5: return launch_phase<5, kPart>(a, C, smem, s);
+      case kPhaseLanes * 7: return launch_phase<7, kPart>(a, C, smem, s);
       default: return cudaErrorInvalidValue;
     }
   }
   if (form != 0 || chunk < 1 || chunk > a.T) return cudaErrorInvalidValue;
   switch (nv) {
-    case 64: return launch_taps<8, kPart>(a, chunk, smem, s);
-    case 32: return launch_taps<4, kPart>(a, chunk, smem, s);
-    case 16: return launch_taps<2, kPart>(a, chunk, smem, s);
-    case 8: return launch_taps<1, kPart>(a, chunk, smem, s);
+    case 64: return launch_taps<8, kPart>(a, C, chunk, smem, s);
+    case 32: return launch_taps<4, kPart>(a, C, chunk, smem, s);
+    case 16: return launch_taps<2, kPart>(a, C, chunk, smem, s);
+    case 8: return launch_taps<1, kPart>(a, C, chunk, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -339,18 +364,18 @@ cudaError_t launch(const Args& a, int form, int nv, int chunk, cudaStream_t s) {
 // What both entry points do: all of a launch (part 0) or, for the probe, a
 // launch cut after a part.
 int run(const void* hist, int64_t H, const void* x, int64_t N, const void* taps, int T, int D,
-        uint32_t inc, const void* phase, uint32_t phase0, float gain, int64_t M, int form, int nv,
-        int chunk, int part, void* out, int device, void* stream) {
+        uint32_t inc, const void* incs, const void* phase, uint32_t phase0, float gain, int64_t M,
+        int C, int form, int nv, int chunk, int part, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const Args a{static_cast<const float2*>(hist), H, static_cast<const float2*>(x), N,
-               static_cast<const float*>(taps), T, D, inc, static_cast<const int64_t*>(phase),
-               phase0, gain, M, static_cast<float*>(out)};
+               static_cast<const float*>(taps), T, D, inc, static_cast<const int64_t*>(incs),
+               static_cast<const int64_t*>(phase), phase0, gain, M, static_cast<float*>(out)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (part) {
-    case kPartAll: return launch<kPartAll>(a, form, nv, chunk, s);
-    case kPartFill: return launch<kPartFill>(a, form, nv, chunk, s);
-    case kPartFillMix: return launch<kPartFillMix>(a, form, nv, chunk, s);
+    case kPartAll: return launch<kPartAll>(a, C, form, nv, chunk, s);
+    case kPartFill: return launch<kPartFill>(a, C, form, nv, chunk, s);
+    case kPartFillMix: return launch<kPartFillMix>(a, C, form, nv, chunk, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -367,19 +392,21 @@ extern "C" int64_t tpusdr_fm_fused_smem(int T, int D, int form, int nv, int chun
 }
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = ok).
-// s = [hist (H samples), x (N samples)]; the NCO phase of s[0] is phase0
-// plus, where `phase` is not null, the low 32 bits of the int64 it points
-// to on the device (the carried phase, read when the kernel runs).
+// s = [hist (H samples), x (N samples)]; C channels (1 to 65535) write the
+// rows of out (C, M).  Channel c's NCO phase of s[0] is phase0 plus, where
+// `phase` is not null, the low 32 bits of phase[c] on the device (the
+// carried phase, read when the kernel runs; C > 1 needs it); its increment
+// is the low 32 bits of incs[c] on the device, or `inc` where incs is null.
 // form 0: nv is 64, 32, 16 or 8 filtered samples per block, chunk (<= T)
 // taps per pass.  form 1: nv is 160 (or, for the timing probe, 224), all
 // taps in one pass, D >= 2.
 extern "C" int tpusdr_fm_fused(const void* hist, int64_t H, const void* x, int64_t N,
-                               const void* taps, int T, int D, uint32_t inc,
-                               const void* phase, uint32_t phase0, float gain, int64_t M,
+                               const void* taps, int T, int D, uint32_t inc, const void* incs,
+                               const void* phase, uint32_t phase0, float gain, int64_t M, int C,
                                int form, int nv, int chunk, void* out, int device,
                                void* stream) {
-  return run(hist, H, x, N, taps, T, D, inc, phase, phase0, gain, M, form, nv, chunk, kPartAll,
-             out, device, stream);
+  return run(hist, H, x, N, taps, T, D, inc, incs, phase, phase0, gain, M, C, form, nv, chunk,
+             kPartAll, out, device, stream);
 }
 
 // The timing probe's entry point (benchmarks/plan_probe.py; no receiver
@@ -387,9 +414,9 @@ extern "C" int tpusdr_fm_fused(const void* hist, int64_t H, const void* x, int64
 // 2 fill and mix; a cut launch stores one word a block).
 extern "C" int tpusdr_fm_fused_probe(const void* hist, int64_t H, const void* x, int64_t N,
                                      const void* taps, int T, int D, uint32_t inc,
-                                     const void* phase, uint32_t phase0, float gain, int64_t M,
-                                     int form, int nv, int chunk, int part, void* out,
-                                     int device, void* stream) {
-  return run(hist, H, x, N, taps, T, D, inc, phase, phase0, gain, M, form, nv, chunk, part,
-             out, device, stream);
+                                     const void* incs, const void* phase, uint32_t phase0,
+                                     float gain, int64_t M, int C, int form, int nv, int chunk,
+                                     int part, void* out, int device, void* stream) {
+  return run(hist, H, x, N, taps, T, D, inc, incs, phase, phase0, gain, M, C, form, nv, chunk,
+             part, out, device, stream);
 }

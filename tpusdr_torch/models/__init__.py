@@ -9,4 +9,4 @@ from tpusdr_torch.models.receiver import (  # noqa: F401
     fm_receiver,
     rf_to_pcm,
 )
-from tpusdr_torch.models.multichannel import fm_channel_bank  # noqa: F401
+from tpusdr_torch.models.multichannel import fm_channel_bank, nbfm_channels  # noqa: F401

@@ -9,7 +9,9 @@ the uint32 value, as the JAX package carries a uint32 device scalar.  It
 is advanced on the device by ``(phase + k*inc) & (2^32 - 1)`` and never
 read back to the host, so a tick costs no device sync and a captured step
 (``graph/runner.py``) replays the advance with the rest of the tick.  The
-increment stays a host int: it is a parameter, not a carry.  Phase tensors
+increment stays a host int: it is a parameter, not a carry.  A bank of C
+oscillators carries C phases, a (C,) int64 tensor, and its C increments
+are a (C,) int64 tensor on the same device (``as_phases``).  Phase tensors
 carry a mark (``is_phase``) that tells them apart from other 0-d int64
 leaves, such as a sample count, where a checkpoint or ``convert`` stores
 them as uint32.
@@ -64,21 +66,33 @@ def as_phase(value_u32, device=None) -> torch.Tensor:
     return _mark(torch.tensor(int(value_u32) & _MASK, dtype=torch.int64, device=device))
 
 
+def as_phases(values_u32, device=None) -> torch.Tensor:
+    """C uint32 values (host ints) as the carried phases of C oscillators:
+    a (C,) int64 tensor on ``device``."""
+    return _mark(torch.tensor([int(v) & _MASK for v in values_u32], dtype=torch.int64, device=device))
+
+
 def init_phase(initial_radians: float = 0.0, device=None) -> torch.Tensor:
     return as_phase(radians_to_u32(initial_radians), device)
 
 
-def advance_phase(phase_u32: torch.Tensor, inc_u32: int, num: int) -> torch.Tensor:
+def advance_phase(phase_u32: torch.Tensor, inc_u32, num: int) -> torch.Tensor:
     """Exact phase accumulator update for ``num`` samples (a host int; a
-    negative count goes back), on the phase's device."""
-    return _mark((phase_u32 + ((int(inc_u32) * int(num)) & _MASK)) & _MASK)
+    negative count goes back), on the phase's device; ``inc_u32`` a host
+    int, or C increments (a tensor) for C phases."""
+    step = inc_u32 * int(num) if isinstance(inc_u32, torch.Tensor) else int(inc_u32) * int(num)
+    return _mark((phase_u32 + (step & _MASK)) & _MASK)
 
 
-def phase_angles(phase_u32: torch.Tensor, inc_u32: int, num: int) -> torch.Tensor:
+def phase_angles(phase_u32: torch.Tensor, inc_u32, num: int) -> torch.Tensor:
     """Radian angles float32(phase) * 2*pi/2^32 of ``num`` consecutive
-    samples on the phase's device, the uint32 phases held in int64."""
+    samples on the phase's device, the uint32 phases held in int64; with C
+    increments (a tensor) and C phases, (C, num) of them."""
     k = torch.arange(num, dtype=torch.int64, device=phase_u32.device)
-    ph = (k * int(inc_u32) + phase_u32) & _MASK
+    if isinstance(inc_u32, torch.Tensor):
+        ph = (k * inc_u32[..., None] + phase_u32[..., None]) & _MASK
+    else:
+        ph = (k * int(inc_u32) + phase_u32) & _MASK
     return ph.to(torch.float32) * float(_PHASE_SCALE)
 
 

@@ -485,13 +485,17 @@ class Tracer:
     def counters(self) -> dict:
         """The counters of the runs that record into the tracer (their
         ``RunStats``: blocks, samples, the step's captures and eager ticks)
-        and the kernel wrappers' launches, since each joined."""
+        and the kernel wrappers' launches, since each joined: ``launches``
+        by wrapper, and each other counter of the wrappers
+        (``kernels.COUNTERS``: ``channel_rows``) where one moved."""
         out: dict = {}
         for obj, fields, base in list(self._counted):
             for f, b in zip(fields, base):
                 out[f] = out.get(f, 0) + getattr(obj, f) - b
-        launches = {k: v - self._launches0.get(k, 0) for k, v in _launch_counts().items()}
-        out["launches"] = {k: v for k, v in launches.items() if v}
+        out["launches"] = {}
+        for (f, name), v in _launch_counts().items():
+            if v != self._launches0.get((f, name), 0):
+                out.setdefault(f, {})[name] = v - self._launches0.get((f, name), 0)
         return out
 
     def clock(self) -> dict:
@@ -534,9 +538,10 @@ def _lane_name(lane) -> str:
 
 
 def _launch_counts() -> dict:
+    """{(counter, wrapper name): value} of every kernel wrapper."""
     from tpusdr_torch import kernels
 
-    return {w.__name__: w.launches for w in kernels.WRAPPERS}
+    return {(f, w.__name__): v for (w, f), v in kernels.counts().items()}
 
 
 def _pct(v, q) -> float:

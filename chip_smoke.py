@@ -15,7 +15,13 @@ Phases (each prints lines; any failure exits non-zero):
      channels on one 1,278,750-sample tick at (728, /66), M = 19,375, with
      random carried phases: one launch, 57 channel rows, the bound from
      ``sdrbench/fm_fused_work.py``) and at the single-stage
-     NBFM 20 Msps shape (9660, /666), each with the plan its rule picks; K4 at the AM shapes (868, /250) on a
+     NBFM 20 Msps shape (9660, /666), each with the plan its rule picks; the
+     batched resampler ``resample_poly`` at every shape a main path
+     launches it (the capture cells' 33/125 over 57 rows of 19,375, 6/25
+     over 100 rows of 12,800 and 3/25 over one row of 25,600, the live
+     cell's 3/25 over one row of 2,625, NBFM 2 Msps's 198/125 over one row
+     of 20,000; one launch and the rows counted, the carry bit for bit, the
+     bound from ``sdrbench/resampler_work.py``); K4 at the AM shapes (868, /250) on a
      20 Msps tick, (46, /2) and (6665, /500) and at the JSON graph's
      (546, /50), each through the streaming call (the carried T-1 samples
      through the second pointer) with the plan its rule picks, timed on a
@@ -42,9 +48,14 @@ Phases (each prints lines; any failure exits non-zero):
      form), 16 ticks of 1,280,000 samples of a synthetic 1 kHz FM tone: the
      tone must decode (amplitude ~0.34, SNR > 60 dB), the two front ends
      must agree, and the first 2 ticks must match the port's CPU path;
+     the RF kernel and ``resample_poly`` once a tick;
   4. fm_receiver(2 Msps, +100 kHz, NBFM, use_fused=True) through the
-     FM-fused kernel, against the CPU path; one tick under the profiler
-     must show no concatenation of the tick in front of the kernel;
+     FM-fused kernel, against the CPU path, it and ``resample_poly`` once
+     a tick; one tick under the profiler must show no concatenation of the
+     tick in front of the kernel; then two ticks each of the
+     ``nbfm.capture`` chain (57 rows), the ``bank100.capture`` chain (100
+     rows) and the WBFM receiver on ``wbfm.live``'s 131,250-sample blocks:
+     ``resample_poly`` once a tick over every row;
   5. the AM path from a HackRF-style int8 capture: 16 ticks of 1,280,000
      packed int8 words of the CLI's 700 Hz AM signal at +1.2 MHz, written
      to build/, then (a) the receive CLI on the card (default front end:
@@ -101,7 +112,7 @@ Phases (each prints lines; any failure exits non-zero):
      records (a graph's kernels), RunStats Msps;
  11. every phase 2 row's bound at K5's best rate in this run (the floor
      probe's ceiling) beside its bound at peak, a JSON line of the kernels
-     (with phase 12's shard shapes, phase 13's two paths as
+     (with ``resample_poly`` at phase 2's shapes, phase 12's shard shapes, phase 13's two paths as
      ``native:banded_fir`` and ``shim:banded_fir``, and phase 14's K1 rows),
      the card line, and the result line (printed after phase 14);
  12. the sharded streams (``tpusdr_torch.parallel``) on a ``LocalMesh`` on
@@ -578,6 +589,8 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
     check(fir_poly.fir_decim_plan(T, D, TICK // D) == fir_poly.FirDecimPlan("phase", 224, T),
           "the JSON graph's K4 stage takes the phase-major form, 7 outputs a lane")
 
+    cmp.update(resample_rows(torch, card, dev))
+
     # K5: the copy floor at both ticks; the timed calls rotate through
     # ticks that together exceed the L2 cache, so every byte comes from
     # device memory and a rate above the card's peak means dropped loads.
@@ -674,6 +687,61 @@ def kernel_phase(torch, card, dev, am_chain) -> dict:
     return cmp
 
 
+#: the resampler shapes of the main paths: (key, where it runs, U, D, rows,
+#: tick a row, the ``kernels_used`` entry of that path's launches)
+RESAMPLE_CELLS = [
+    ("resample_nbfm", "nbfm.capture", 33, 125, 57, 19_375, "nbfm_capture:resample_poly"),
+    ("resample_bank100", "bank100.capture", 6, 25, 100, 12_800, "bank100:resample_poly"),
+    ("resample_wbfm", "wbfm.capture and phase 3", 3, 25, 1, 25_600, "wbfm:resample_poly"),
+    ("resample_live", "wbfm.live", 3, 25, 1, 2_625, "live:resample_poly"),
+    ("resample_nbfm2", "phase 4 NBFM 2 Msps", 198, 125, 1, 20_000, "nbfm:resample_poly"),
+]
+
+
+def resample_rows(torch, card, dev) -> dict:
+    """Phase 2's rows of the batched resampler: ``resample_poly`` against
+    its plain version (``ops.resample._resample_real`` behind the ``cat``)
+    at every shape of ``RESAMPLE_CELLS``, random rows and carry, with the
+    plan its rule picks; one launch and ``rows`` rows counted from 0; the
+    carry bit for bit; the bound from ``sdrbench/resampler_work.py``."""
+    from sdrbench.resampler_work import resampler_work
+    from tpusdr_torch import kernels
+    from tpusdr_torch.kernels import resample_poly as rp
+    from tpusdr_torch.ops import resample as rs
+
+    rng = np.random.default_rng(21)
+    out = {}
+    for key, label, U, D, rows, N, _used in RESAMPLE_CELLS:
+        taps = rs.design_resampler_taps(U, D)
+        plan = rs.make_plan(taps, U, D, N)
+        ftaps, frame = rs.plan_taps(plan, dev), torch.from_numpy(plan.frame_taps).to(dev)
+        P, M = plan.taps_per_phase, plan.block_out
+        state = torch.from_numpy(rng.standard_normal((rows, P - 1)).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((rows, N)).astype(np.float32)).to(dev)
+        pplan = rp.resample_plan(U, D, P, rows, M)
+        print(f"phase 2 resample_poly plan at {U}/{D} (P={P}), {rows} rows of {N}: {pplan}, "
+              f"{rp.resample_blocks(U, rows, M, pplan)} blocks of {rp.resample_threads(pplan)} threads and "
+              f"{rp.resample_smem(U, D, rp.group_len(U, D, P), pplan.tile, pplan.groups)} B", flush=True)
+        kernels.reset_launch_counts()
+        carry, _ = rp.resample_poly(state, x, plan, ftaps)
+        torch.cuda.synchronize()
+        counts = (rp.resample_poly.launches, rp.resample_poly.rows)
+        check(counts == (1, rows), f"resample_poly {label}: (launches, rows) {counts}, expected (1, {rows})")
+        check(torch.equal(carry, torch.cat([state, x], -1)[:, -(P - 1):]), f"resample_poly {label}: the carry differs")
+        out[key] = compare(
+            torch, card, f"resample_poly {label} U={U} D={D} P={P} rows={rows} N={N} {tuple(pplan)}",
+            lambda state=state, x=x, plan=plan, ftaps=ftaps: rp.resample_poly(state, x, plan, ftaps)[1],
+            lambda state=state, x=x, plan=plan, frame=frame: rp.resample_poly_plain(state, x, plan, frame)[1],
+            rp.resample_poly, *resampler_work(rows, N, M, U, len(taps)),
+        )
+        out[key]["launches"], out[key]["rows"] = counts
+        b = out[key]
+        print(f"phase 2 resample_poly {label}: {b['ms'] * 1e3:.2f} us against a bound of {b['bound_ms'] * 1e3:.2f} us "
+              f"({b['bound_by']}: {b['bytes']} B, {b['operations']} operations), plain {b['plain_ms'] * 1e3:.2f} us, "
+              f"{b['rel_err']:.2g} of peak", flush=True)
+    return out
+
+
 def wbfm_phase(torch, card, dev, kernels_used: dict) -> dict:
     """Phase 3: the WBFM path on both front ends."""
     from tpusdr_torch import kernels
@@ -693,8 +761,9 @@ def wbfm_phase(torch, card, dev, kernels_used: dict) -> dict:
         kernels.reset_launch_counts()
         audio[label] = run_chain(torch, chain, ticks, dev)
         counts = path_counts(torch)
-        check_path(counts, f"WBFM {label}", {wrapper: N_TICKS})
+        check_path(counts, f"WBFM {label}", {wrapper: N_TICKS, "resample_poly": N_TICKS})
         kernels_used[wrapper] = counts[wrapper]
+        kernels_used["wbfm:resample_poly"] = counts["resample_poly"]
         amp, snr = tone_fit(audio[label], spec.audio_rate)
         # timed pass: the same 16 ticks again from a fresh state
         state = chain.init_state(device=dev)
@@ -741,8 +810,9 @@ def nbfm_phase(torch, card, dev, kernels_used: dict) -> dict:
     nb_audio = run_chain(torch, nb_chain, nb_gpu, dev)
     host_s = time.perf_counter() - t_host
     counts = path_counts(torch)
-    check_path(counts, "NBFM", {"fused_fm_demod": nb_ticks})
+    check_path(counts, "NBFM", {"fused_fm_demod": nb_ticks, "resample_poly": nb_ticks})
     kernels_used["fused_fm_demod"] = counts["fused_fm_demod"]
+    kernels_used["nbfm:resample_poly"] = counts["resample_poly"]
     e_nb = err_db(run_chain(torch, nb_ref_chain, nb_cpu, "cpu"), nb_audio)
     run = {"gpu_vs_cpu_db": e_nb, "tick": nb_tick, "host_msps": nb_ticks * nb_tick / host_s / 1e6,
            "launches": counts}
@@ -751,6 +821,42 @@ def nbfm_phase(torch, card, dev, kernels_used: dict) -> dict:
     check(e_nb <= AUDIO_TOL_DB, f"NBFM: GPU vs CPU {e_nb:.1f} dB")
     check(not run["tick_sized_cats"], f"NBFM: the tick is concatenated in front of the kernel: {run['tick_sized_cats']}")
     return run
+
+
+def resampler_paths(torch, card, dev, kernels_used: dict) -> dict:
+    """Phase 4's main paths of the batched resampler that phases 3 and 4
+    do not run: the ``nbfm.capture`` chain (``nbfm_channels`` over the 57
+    marine offsets), the ``bank100.capture`` chain (``fm_channel_bank`` of
+    100 channels at 20 Msps, 48 kHz) and the WBFM receiver on
+    ``wbfm.live``'s blocks of 131,250, two ticks each of complex noise:
+    ``resample_poly`` once a tick over every row, the audio finite."""
+    from tpusdr_torch import kernels
+    from tpusdr_torch.kernels import resample_poly as rp
+    from tpusdr_torch.models import multichannel, receiver
+
+    rng = np.random.default_rng(5)
+    paths = (
+        ("nbfm_capture", lambda: multichannel.nbfm_channels(2e6, [25e3 * k for k in range(-28, 29)])[0],
+         1_278_750, 57),
+        ("bank100", lambda: multichannel.fm_channel_bank(20e6, 100, 48000.0)[0], 1_280_000, 100),
+        ("live", lambda: receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0], 131_250, 1),
+    )
+    runs = {}
+    for name, build, tick, rows in paths:
+        chain = build()
+        chain.to(dev)
+        z = (rng.standard_normal((2, tick)) + 1j * rng.standard_normal((2, tick))) * 0.1
+        kernels.reset_launch_counts()
+        audio = run_chain(torch, chain, torch.from_numpy(z.astype(np.complex64)).to(dev), dev)
+        counts = path_counts(torch)
+        runs[name] = {"tick": tick, "rows": rp.resample_poly.rows, "audio_shape": list(audio.shape),
+                      "launches": counts}
+        print(f"phase 4 resampler path {name} [{card}]: " + json.dumps(runs[name]), flush=True)
+        check_path(counts, f"{name} chain", {"resample_poly": 2})
+        check(rp.resample_poly.rows == 2 * rows, f"{name} chain: {rp.resample_poly.rows} resampled rows, expected {2 * rows}")
+        check(bool(np.isfinite(audio).all()), f"{name} chain: audio not finite")
+        kernels_used[f"{name}:resample_poly"] = counts["resample_poly"]
+    return runs
 
 
 def profile_tick(torch, step, min_len: int) -> dict:
@@ -1001,7 +1107,7 @@ def graph_phase(torch, card, dev, wbfm_audio, kernels_used: dict) -> dict:
     kernels.reset_launch_counts()
     stats = app.run()
     counts = path_counts(torch)
-    check_path(counts, "JSON graph", {"fir_decim": N_TICKS})
+    check_path(counts, "JSON graph", {"fir_decim": N_TICKS, "resample_poly": N_TICKS})
     kernels_used["graph:fir_decim"] = counts["fir_decim"]
     audio, fs = read_wav(wav)
     amp, snr = tone_fit(audio, fs)
@@ -1089,7 +1195,7 @@ def graph_phase(torch, card, dev, wbfm_audio, kernels_used: dict) -> dict:
         single[name] = out[name]
     kernels.reset_launch_counts()
     two, walls["merged_two_queues_s"] = drive(MergedRunner(graphs, queue={"a": q0, "b": q1}), ["a", "b"])
-    check_path(path_counts(torch), "MergedRunner", {"fir_decim": 2 * 2 * half})
+    check_path(path_counts(torch), "MergedRunner", {"fir_decim": 2 * 2 * half, "resample_poly": 2 * 2 * half})
     one, walls["merged_one_queue_s"] = drive(MergedRunner(graphs, queue=q0), ["a", "b"])
     # the same two readings with eager steps (capture=False), as before the
     # captured step
@@ -1690,8 +1796,8 @@ def sharded_phase(torch, card, dev, wbfm_audio, used: dict) -> tuple[dict, dict]
         print(f"phase 12 {label} [{card}]: " + json.dumps(r), flush=True)
         check(r["captured_equals_eager"], f"sharded {label}: captured audio differs from eager")
         expected = {w: 0 for w in counts["captured"]}
-        if wrapper is not None:
-            expected[wrapper] = per_tick * len(ticks)
+        if wrapper is not None:  # a time-sharded receiver: its RF kernel and its resampler's, once a shard
+            expected[wrapper] = expected["resample_poly"] = per_tick * len(ticks)
         check_path(counts["captured"], f"sharded {label} captured", expected)
         check_path(counts["eager"], f"sharded {label} eager", expected)
         captured = objs["captured"]
@@ -1874,7 +1980,7 @@ def host_io_phase(torch, card, dev, used: dict) -> dict:
         runs[label] = {"amp": amp, "snr_db": snr, "samples": len(audio),
                        "runstats_msps_in": float(said.group(1)) if said else None, "launches": counts}
         print(f"phase 13 WBFM 20 Msps int8 CLI, {label} file path [{card}]: " + json.dumps(runs[label]), flush=True)
-        check_path(counts, f"CLI {label}", {"banded_fir": n_blocks})
+        check_path(counts, f"CLI {label}", {"banded_fir": n_blocks, "resample_poly": n_blocks})
         check(abs(amp - TONE_AMP) < 0.02 and snr > SNR_MIN_DB, f"CLI {label}: tone {amp:.4f}, {snr:.1f} dB")
         # 20 Msps -> 48 kHz is 3 / 1250: the tail's audio is owed too
         check(len(audio) == n_in * 3 // 1250, f"CLI {label}: {len(audio)} audio samples for {n_in} in")
@@ -1938,7 +2044,7 @@ def host_io_phase(torch, card, dev, used: dict) -> dict:
           f"shim loop: {loop['flushed_blocks']} blocks flushed, {loop['dropped_blocks']} dropped")
     check(loop["recaptured"] and loop["graphs_after"] == 1, f"shim loop: {loop}")
     check(abs(loop["shift_hz"] + 1.5e6) < 1.0, f"shim loop: the NCO at {loop['shift_hz']} Hz after the retune")
-    check_path(counts, "shim loop", {"banded_fir": 2 * half})
+    check_path(counts, "shim loop", {"banded_fir": 2 * half, "resample_poly": 2 * half})
     for side in ("before", "after"):
         amp, snr = loop[f"amp_{side}"], loop[f"snr_db_{side}"]
         check(abs(amp - TONE_AMP) < 0.02 and snr > SNR_MIN_DB, f"shim loop {side} the retune: {amp:.4f}, {snr:.1f} dB")
@@ -2041,7 +2147,7 @@ def scaling_phase(torch, card, dev, wbfm_captured_ms: float, used: dict) -> tupl
                     check(m["vs_unsharded_db"] is None or m["vs_unsharded_db"] <= SHARD_DB,
                           f"bench_scaling {label} S={m['devices']}: {m['vs_unsharded_db']} dB from unsharded")
                     expected = {w: 0 for w in m["launches"]}
-                    expected["banded_fir"] = m["devices"] * m["steps"]
+                    expected["banded_fir"] = expected["resample_poly"] = m["devices"] * m["steps"]
                 else:
                     check(m["tick"] == 2_096_640, f"bench_scaling {label}: tick {m['tick']}")
                     check(m["vs_unsharded_db"] is None or m["vs_unsharded_db"] <= AUDIO_TOL_DB,
@@ -2103,7 +2209,8 @@ def scaling_phase(torch, card, dev, wbfm_captured_ms: float, used: dict) -> tupl
           + json.dumps(scan), flush=True)
     # every arm warmed once, then SCAN_REPS rounds; the first two ticks of the
     # shape (eager, then the capture) count as launches too
-    check_path(counts, "scan_marginal", {**{w: 0 for w in counts}, "banded_fir": sum(SCAN_KS) * (SCAN_REPS + 1)})
+    replays = sum(SCAN_KS) * (SCAN_REPS + 1)  # the WBFM tick: K1 and the resampler's kernel once each
+    check_path(counts, "scan_marginal", {**{w: 0 for w in counts}, "banded_fir": replays, "resample_poly": replays})
     check(m["n_points"] == len(SCAN_KS) * SCAN_REPS and abs(scan["per_tick_over_events"] - 1) < SCAN_TOL,
           f"scan_marginal: {scan['per_tick_ms']:.4f} ms a tick against {events_ms:.4f} on CUDA events")
     del xs
@@ -2165,6 +2272,7 @@ def main() -> int:
     main_runs = {
         "wbfm": wbfm_runs,
         "nbfm": nbfm_phase(torch, card, dev, used),  # phase 4
+        "resampler_paths": resampler_paths(torch, card, dev, used),
         "am": am_phase(torch, card, dev, am_pallas, used),  # phase 5
         "floor_probe": floor_phase(torch, card, dev, used),  # phase 6
         "staging_probes": staging_phase(torch, card, dev, used),
@@ -2250,6 +2358,14 @@ def main() -> int:
          "replaces": "tpusdr/kernels/fir_pallas.py:119",
          "launches": used["shard:fir_decim"], **_nums(shard_cmp["k4_shard"])},
     ]
+    # the batched resampler at each phase 2 shape, with the launches of the
+    # main path that runs it there (phases 3 and 4, and the paths phase 4
+    # adds for the capture cells' chains and the live block)
+    for key, label, U, D, rows, N, use in RESAMPLE_CELLS:
+        kern.append({"name": f"resample_poly ({label}, {U}/{D}, {rows} rows of {N:,})", "route": "cuda",
+                     "source": src + "resample_poly.cu",
+                     "replaces": "none: port only (plain version tpusdr_torch/ops/resample.py _resample_real)",
+                     "launches": used[use], **_nums(cmp[key])})
     # phase 14: K1 on bench_scaling's time mode at each shard shape, and
     # once a replay under scan_marginal at the whole tick's
     for key, r in scaling_cmp.items():

@@ -26,9 +26,12 @@ from tpusdr_torch.kernels import dispatch
 from tpusdr_torch.kernels import fir_banded as tfb
 from tpusdr_torch.kernels import fir_poly as tfp
 from tpusdr_torch.kernels import fm_fused as tfm
+from tpusdr_torch.kernels import resample_poly as trp
+from tpusdr_torch.models import multichannel as TM
 from tpusdr_torch.models import receiver as TR
 from tpusdr_torch.ops import design as tdesign
 from tpusdr_torch.ops import osc as tosc
+from tpusdr_torch.ops import resample as tres
 
 torch.set_num_threads(1)
 
@@ -815,6 +818,178 @@ def test_k4_outputs_form_matches_plain(rng, T, D, tile, chunk):
     close_to_peak(got, ref)
 
 
+# -- the batched resampler: resample_poly's rule and index arithmetic -----------------
+
+
+def _resampler_launches(chain, rows, tick=RULE_TICK):
+    """(U, D, P, rows, M) of each Resampler with up > 1 in the chain, on the
+    granule multiple nearest below ``tick``."""
+    tick = chain.granule * max(1, tick // chain.granule)
+    lengths = {name: n_in for name, n_in, _ in chain.plan(tick)}
+    return [(b.up, b.down, -(-b.taps.shape[-1] // b.up), rows, lengths[name] * b.up // b.down)
+            for name, b in chain.blocks if isinstance(b, TB.Resampler) and b.up > 1]
+
+
+MARINE = [25e3 * k for k in range(-28, 29)]
+
+
+def test_resample_plan_over_every_receiver_resampler(monkeypatch):
+    """For every Resampler with up > 1 that fm_receiver (WBFM, NBFM) and
+    am_receiver build at 1-20 Msps to 48, 16 and 8 kHz, and that
+    fm_channel_bank and nbfm_channels build at the cells', the JAX config
+    4's, the channels app's and the tests' shapes (at all their rows and at
+    a shard's, a quarter and an eighth): one block's shared memory within
+    232,448 B, a built K dividing the tile, and at least one block an SM
+    wherever rows x t allows it."""
+    monkeypatch.setattr(tdesign, "lowpass_taps", _longest_candidate_taps)
+    launches = set()
+    for fs in (1e6, 2e6, 2.4e6, 5e6, 8e6, 10e6, 16e6, 20e6):
+        for audio in (48000.0, 16000.0, 8000.0):
+            builds = [TR.am_receiver(fs, 0.2 * fs, audio)] + [
+                TR.fm_receiver(fs, 0.2 * fs, variant, audio) for variant in (TR.WBFM, TR.NBFM)]
+            for chain, _ in builds:
+                launches.update(_resampler_launches(chain, 1))
+    for chain, info in (TM.fm_channel_bank(20e6, 100, 48000.0), TM.fm_channel_bank(20.48e6, 64, 16000.0),
+                        TM.fm_channel_bank(5.12e6, 16, 16000.0), TM.nbfm_channels(2e6, MARINE),
+                        TM.nbfm_channels(2e6, MARINE[::4])):
+        C = info["num_channels"]
+        for rows in (C, -(-C // 4), -(-C // 8)):
+            launches.update(_resampler_launches(chain, rows))
+    assert {(33, 125, 138, 57), (6, 25, 152, 100), (3, 25, 303, 1)} <= {k[:4] for k in launches}
+    for U, D, P, rows, M in sorted(launches):
+        plan = trp.resample_plan(U, D, P, rows, M)
+        L = trp.group_len(U, D, P)
+        assert plan.split in trp.SPLITS and 1 <= plan.tile <= M // U and 1 <= plan.groups <= -(-U // 4)
+        assert trp.resample_smem(U, D, L, plan.tile, plan.groups) <= tfb.SMEM_LIMIT, (U, D, P, rows, M, plan)
+        assert trp.resample_threads(plan) <= trp.MAX_THREADS, (U, D, P, rows, M, plan)
+        blocks = trp.resample_blocks(U, rows, M, plan)
+        assert blocks >= min(tfb.SM_COUNT, rows * (M // U)), (U, D, P, rows, M, plan, blocks)
+    assert any(trp.resample_plan(*k).groups < -(-k[0] // 4) for k in launches)  # U in the thousands
+
+
+@pytest.mark.parametrize(
+    "U,D,P,rows,M,want,blocks,threads",
+    [
+        (33, 125, 138, 57, 5_115, (26, 1, 9), 342, 256),  # nbfm.capture: 6 tiles of 26 t a row, 9 groups of classes
+        (6, 25, 152, 100, 3_072, (128, 1, 2), 400, 256),  # bank100.capture
+        (3, 25, 303, 1, 3_072, (7, 32, 1), 147, 224),  # wbfm.capture: a warp an item; 8 t a block would leave 4 SMs idle
+        (3, 25, 303, 1, 315, (1, 32, 1), 105, 32),  # wbfm.live's 2,625-sample block: one t a block
+        (198, 125, 37, 1, 52_272, (1, 4, 50), 264, 224),  # NBFM at 2 Msps to 48 kHz, 50 groups of classes
+        (1599, 1000, 37, 1, 31_980, (1, 8, 128), 80, 1024),  # 400 groups: 250 KB of taps, so runs of 128
+    ],
+)
+def test_resample_plan_choices(U, D, P, rows, M, want, blocks, threads):
+    plan = trp.resample_plan(U, D, P, rows, M)
+    assert tuple(plan) == want and trp.resample_blocks(U, rows, M, plan) == blocks
+    assert trp.resample_threads(plan) == threads
+    L, g = trp.group_len(U, D, P), plan.groups
+    window = (plan.tile - 1) * D + 4 * (g - 1) * D // U + 1 + L
+    assert trp.resample_smem(U, D, L, plan.tile, g) == g * L * 16 + (window + 4 * g * plan.tile) * 4 <= tfb.SMEM_LIMIT
+
+
+def test_group_taps_band_each_class():
+    """G holds class c's reversed taps at its offset n_c - n_{4g} in column
+    c % 4 of group c // 4, and zeros around them and past U."""
+    plan = tres.make_plan(tres.design_resampler_taps(6, 25), 6, 25, 250)
+    G = trp.group_taps(plan)
+    P, n = plan.taps_per_phase, trp.class_starts(6, 25)
+    assert G.shape == (2, trp.group_len(6, 25, P), 4) and n.tolist() == [0, 4, 8, 12, 16, 20]
+    assert G.shape[1] == P + 12
+    hr = plan.frame_taps.reshape(6, -1)[:, :P]
+    for c in range(6):
+        g, r = divmod(c, 4)
+        col = G[g, :, r]
+        off = n[c] - n[4 * g]
+        np.testing.assert_array_equal(col[off : off + P], hr[c])
+        assert not col[:off].any() and not col[off + P :].any()
+    assert not G[1, :, 2:].any()
+
+
+def _kernel_in_numpy(hist, x, G, U, D, M, plan):
+    """The kernel's index arithmetic (csrc/resample_poly.cu) in numpy,
+    float64: each block's run of groups and window with its zero tail, each
+    thread's item and taps, the butterfly over the S threads of an item,
+    the interleaved place, the last block's carry.  Returns (y, carry,
+    times each output was written)."""
+    rows, H = hist.shape
+    N = x.shape[1]
+    t_count, tile, S, groups = M // U, plan.tile, plan.split, plan.groups
+    Ng, L = G.shape[:2]
+    tiles, runs = -(-t_count // tile), -(-Ng // groups)
+    thr = np.arange(trp.resample_threads(plan))
+    item, lane_s = thr // S, thr % S
+    gl, tl = item // tile, item % tile
+    y, carry, writes = np.full((rows, M), np.nan), np.full((rows, H), np.nan), np.zeros((rows, M), int)
+    s_all = np.concatenate([hist, x], axis=1).astype(np.float64)
+    for b in range(rows * tiles * runs):
+        run, row, t0 = b % runs, b // runs // tiles, (b // runs % tiles) * tile
+        tt = min(tile, t_count - t0)
+        g0 = run * groups
+        gn = min(groups, Ng - g0)
+        c0 = 4 * g0
+        cw = min(U, 4 * (g0 + gn)) - c0
+        nb0 = c0 * D // U
+        W = (tile - 1) * D + 4 * (g0 + gn - 1) * D // U - nb0 + L
+        assert W <= trp.window_len(U, D, L, tile, groups)
+        e = t0 * D + nb0 + np.arange(W)
+        win = np.where(e < H + N, s_all[row, np.minimum(e, H + N - 1)], 0.0)
+        acc = np.zeros((len(thr), 4))
+        for th in thr[gl < gn]:
+            ks = np.arange(lane_s[th], L, S)
+            idx = tl[th] * D + 4 * (g0 + gl[th]) * D // U - nb0 + ks
+            assert idx.max() < W
+            acc[th] = win[idx] @ G[g0 + gl[th], ks].astype(np.float64)
+        off = S // 2
+        while off > 0:
+            acc = acc + acc[thr ^ off]
+            off //= 2
+        out = np.full(tile * cw, np.nan)
+        for th in thr[(lane_s == 0) & (gl < gn) & (tl < tt)]:
+            for r in range(4):
+                c = 4 * gl[th] + r
+                if c < cw:
+                    out[c + cw * tl[th]] = acc[th, r]
+        for i in range(tt * cw):
+            m = (t0 + i // cw) * U + c0 + i % cw
+            y[row, m] = out[i]
+            writes[row, m] += 1
+        if t0 + tile >= t_count and run == 0:
+            carry[row] = s_all[row, N : N + H]
+    return y, carry, writes
+
+
+@pytest.mark.parametrize(
+    "U,D,rows,t,plan",
+    [
+        (33, 125, 2, 19, (7, 1, 9)),  # the NBFM channels' form: 9 groups, a last tile of 5
+        (33, 125, 1, 9, (4, 1, 4)),  # runs of 4 groups: 3 runs a tile, the last of one group and one class
+        (6, 25, 3, 40, (16, 1, 2)),  # the bank's: a last tile of 8, a half-empty group
+        (6, 25, 1, 21, (32, 1, 2)),  # one tile, short of it
+        (3, 25, 1, 30, (7, 32, 1)),  # WBFM's: a warp an item, a last tile of 2
+        (3, 25, 2, 7, (1, 32, 1)),
+        (12, 125, 2, 9, (4, 8, 2)),  # two runs of two groups
+        (5, 2, 2, 12, (5, 2, 2)),  # an even D
+    ],
+)
+def test_resample_kernel_index_arithmetic_matches_plain(rng, U, D, rows, t, plan):
+    """The kernel's loop written out in numpy (``_kernel_in_numpy``) on the
+    table ``plan_taps`` gives on the card, against the plain version on two
+    streamed ticks: every output written once and within 1e-6 of peak, the
+    carry bit for bit."""
+    plan = trp.ResamplePlan(*plan)
+    rp = tres.make_plan(tres.design_resampler_taps(U, D), U, D, t * D)
+    P, M = rp.taps_per_phase, rp.block_out
+    G, frame = trp.group_taps(rp), tres.plan_taps(rp)
+    state = torch.zeros(rows, P - 1)
+    for _ in range(2):
+        x = torch.from_numpy(rng.standard_normal((rows, t * D)).astype(np.float32))
+        y, carry, writes = _kernel_in_numpy(state.numpy(), x.numpy(), G, U, D, M, plan)
+        state, ref = trp.resample_poly_plain(state, x, rp, frame)
+        assert (writes == 1).all()
+        close_to_peak(y, ref.numpy(), rel=1e-6)
+        np.testing.assert_array_equal(carry, state.numpy())
+
+
 # -- dispatch -------------------------------------------------------------------------
 
 
@@ -824,7 +999,10 @@ def test_cpu_tensors_take_the_plain_version_without_launching(rng):
     tfb.banded_fir(z, torch.ones(33), 4)
     tfm.fused_fm_demod(z, torch.ones(33), 4, 123, 0, 1.0)
     tfp.fir_decim(z, torch.ones(33), 4)
-    assert [w.launches for w in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS) == [0] * 8
+    plan = tres.make_plan(tres.design_resampler_taps(3, 25), 3, 25, 250)
+    trp.resample_poly(torch.zeros(2, plan.history), torch.ones(2, 250), plan, tres.plan_taps(plan))
+    assert [w.launches for w in kernels.WRAPPERS] == [0] * len(kernels.WRAPPERS) == [0] * 9
+    assert trp.resample_poly.rows == 0
     assert dispatch.on_cuda(z, None) is False
 
 

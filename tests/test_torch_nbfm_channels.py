@@ -269,13 +269,15 @@ def test_the_work_of_the_fused_stage_by_hand():
 
 def test_load_spec_reports_the_cell_s_metrics():
     """(f) ``nbfm.capture`` reports capture_msps and setup_s end to end, the
-    two FM-fused roofline shares, and the capture cells' tick gap and
-    device idle share, on the capture mix."""
+    two FM-fused roofline shares, the resampler's share inside the tick,
+    and the capture cells' tick gap and device idle share, on the capture
+    mix."""
     spec = run.load_spec("nbfm.capture")
     assert spec["cell"] == {**spec["cell"], "config": "nbfm_marine57", "traffic": "capture", "chips": 1}
     assert {m["name"] for m in spec["end_to_end"]} == {"capture_msps", "setup_s"}
     assert {m["name"] for m in spec["per_layer"]} == {"fm_fused_roofline_pct", "fm_fused_tick_roofline_pct",
-                                                     "tick_gap_us.capture", "device_idle_pct.capture"}
+                                                     "resampler_tick_roofline_pct", "tick_gap_us.capture",
+                                                     "device_idle_pct.capture"}
     assert spec["traffic"]["mode"] == "replay"
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     conf = {c["name"]: c for c in bench["configs"]}["nbfm_marine57"]

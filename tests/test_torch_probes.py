@@ -114,7 +114,7 @@ def test_probe_wrappers_take_the_plain_version_on_the_cpu_without_launching(rng)
     sp.staged_add_one(x, 8), sp.staged_window_double(x, 8, 3), sp.staged_shift_sum(x, 3)
     assert {w.__name__: w.launches for w in kernels.WRAPPERS} == {
         "banded_fir": 0, "banded_fir_prelude": 0, "fused_fm_demod": 0, "fir_decim": 0,
-        "copy_floor": 0, "staged_add_one": 0, "staged_window_double": 0, "staged_shift_sum": 0,
+        "resample_poly": 0, "copy_floor": 0, "staged_add_one": 0, "staged_window_double": 0, "staged_shift_sum": 0,
     }
 
 

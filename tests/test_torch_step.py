@@ -13,6 +13,8 @@ card's side (captured against eager, bit for bit) is in
 tests/test_torch_cuda.py.
 """
 
+import gc
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,7 @@ from tpusdr_torch.graph.block import Block
 from tpusdr_torch.graph.checkpoint import load_state
 from tpusdr_torch.graph.graph import build_graph
 from tpusdr_torch.graph.queues import MergedRunner
-from tpusdr_torch.graph.runner import CapturedStep, StreamRunner, static_copy, step_in_place
+from tpusdr_torch.graph.runner import CapturedStep, StreamRunner, collector_held, static_copy, step_in_place
 from tpusdr_torch.models import multichannel
 from tpusdr_torch.models import receiver as TR
 from tpusdr_torch.ops import osc
@@ -289,6 +291,23 @@ def test_a_python_scalar_leaf_raises_at_capture():
     chain, _ = TR.fm_receiver(2e6, 300e3, TR.WBFM)
     with pytest.raises(TypeError, match=r"Chain\(shiftfir, demod, deemph, audio\): state leaf \['shiftfir'\]\['phase'\]"):
         static_copy(chain, {**chain.init_state(), "shiftfir": {"tail": torch.zeros(54), "phase": 5}})
+
+
+@pytest.mark.parametrize("was_on", [True, False])
+def test_collector_held_turns_the_collector_off_and_back(was_on):
+    """``collector_held``, which a capture runs inside: the garbage
+    collector off within it and as it was after, a raise included."""
+    saved = gc.isenabled()
+    (gc.enable if was_on else gc.disable)()
+    try:
+        with collector_held():
+            assert not gc.isenabled()
+        assert gc.isenabled() is was_on
+        with pytest.raises(RuntimeError, match="capture failed"), collector_held():
+            raise RuntimeError("capture failed")
+        assert gc.isenabled() is was_on
+    finally:
+        (gc.enable if saved else gc.disable)()
 
 
 def test_capture_true_on_the_cpu_raises():

@@ -44,6 +44,7 @@ tpusdr/graph/runner.py:44-331).
 from __future__ import annotations
 
 import contextlib
+import gc
 import itertools
 import queue as _queue
 import threading
@@ -169,6 +170,22 @@ def _name(block: Block) -> str:
     return block.__class__.__name__
 
 
+@contextlib.contextmanager
+def collector_held():
+    """Python's garbage collector off inside the ``with``, as it was after: a
+    collection inside a capture may free a dead reference cycle that holds
+    another captured graph (a sharded stream and its step form one), and a
+    graph freed there invalidates the capture.  PyTorch no longer collects
+    before a capture by default, so such a cycle may still wait."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 class _Capture:
     """One captured tick: the graph, its static state, input and outputs,
     and what it adds to the kernel wrappers' counters at each replay
@@ -262,7 +279,7 @@ class CapturedStep:
         try:
             # thread_local: the runner's upload thread may allocate and copy
             # on its own stream while this thread captures
-            with tracing.capturing(self.tracer, replay_stream) as tick:
+            with tracing.capturing(self.tracer, replay_stream) as tick, collector_held():
                 with torch.cuda.graph(graph, stream=self.stream, capture_error_mode="thread_local"):
                     y = step_in_place(self.block, static_state, static_x)
         except Exception as e:

@@ -6,6 +6,10 @@
     replacing ``fused_fm_demod_pallas``;
   * ``fir_poly``: polyphase decimating FIR of [history, x], complex data x
     real taps (csrc/fir_poly.cu), replacing ``fir_decim_pallas``;
+  * ``resample_poly``: rational polyphase resampler over a batch of rows
+    (csrc/resample_poly.cu); it replaces no TPU kernel (the JAX package's
+    resampler is plain jnp) and takes the place of the port's stacked-copy
+    resampler on the card;
   * ``copy_floor``: a tick pulled whole through shared memory by
     asynchronous copies (csrc/copy_floor.cu), replacing the kernel of
     ``dma_once`` in benchmarks/kernel_floor_probe.py;
@@ -15,22 +19,24 @@
 
 Each wrapper counts its launches in ``<wrapper>.launches``; the FM-fused
 wrapper also counts the channel rows its launches write, in
-``fused_fm_demod.channel_rows``.
+``fused_fm_demod.channel_rows``, and the resampler the rows it resamples,
+in ``resample_poly.rows``.
 """
 
-from tpusdr_torch.kernels import copy_floor as _copy_floor  # the module keeps its name here
+from tpusdr_torch.kernels import copy_floor as _copy_floor  # the modules keep their names here
+from tpusdr_torch.kernels import resample_poly as _resample_poly
 from tpusdr_torch.kernels.fir_banded import banded_fir, banded_fir_prelude
 from tpusdr_torch.kernels.fir_poly import fir_decim
 from tpusdr_torch.kernels.fm_fused import fused_fm_demod
 from tpusdr_torch.kernels.staging_probes import staged_add_one, staged_shift_sum, staged_window_double
 
 WRAPPERS = (
-    banded_fir, banded_fir_prelude, fused_fm_demod, fir_decim,
+    banded_fir, banded_fir_prelude, fused_fm_demod, fir_decim, _resample_poly.resample_poly,
     _copy_floor.copy_floor, staged_add_one, staged_window_double, staged_shift_sum,
 )
 
 
-COUNTERS = ("launches", "channel_rows")  # what a wrapper may count
+COUNTERS = ("launches", "channel_rows", "rows")  # what a wrapper may count
 
 
 def counts() -> dict:

@@ -99,6 +99,12 @@ def library() -> ctypes.CDLL:
         lib.tpusdr_fir_poly.restype = i
         lib.tpusdr_fir_poly_smem.argtypes = [i, i, i, i, i]
         lib.tpusdr_fir_poly_smem.restype = i64
+        lib.tpusdr_resample_poly.argtypes = [
+            p, i64, p, i64, i64, i64, i, p, i, i, i, i64, i64, i, i, i, p, i64, p, i64, i, p,
+        ]
+        lib.tpusdr_resample_poly.restype = i
+        lib.tpusdr_resample_poly_smem.argtypes = [i, i, i, i, i]
+        lib.tpusdr_resample_poly_smem.restype = i64
         lib.tpusdr_copy_floor.argtypes = [p, i64, i, i, i, i, i, i, p, i, p]
         lib.tpusdr_copy_floor.restype = i
         lib.tpusdr_copy_floor_smem.argtypes = [i, i]

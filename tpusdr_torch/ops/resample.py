@@ -7,8 +7,9 @@ Port of tpusdr/ops/resample.py:37-231 (upfirdn semantics):
 
 Outputs of phase class c (m = c + U*t) form a regular P-tap decimate-by-D
 FIR, so the resampler is U such FIRs over polyphase frames plus an
-interleave.  Streaming requires N*U % D == 0 per block; the carry is the
-last ceil(T/U)-1 input samples.  ``up == 1`` delegates to the decimating
+interleave (``_resample_real``, the plain version of the card's kernel
+``kernels/resample_poly.py``).  Streaming requires N*U % D == 0 per block;
+the carry is the last ceil(T/U)-1 input samples.  ``up == 1`` delegates to the decimating
 FIR with the same T-1 history.
 """
 
@@ -132,8 +133,12 @@ def _resample_real(ext: torch.Tensor, plan: ResamplerPlan, frame_taps: torch.Ten
 
 def plan_taps(plan: ResamplerPlan, device=None) -> torch.Tensor:
     """The taps a step reads, on ``device``: the prototype where up == 1
-    (a decimating FIR), else ``plan.frame_taps``."""
-    return torch.from_numpy(plan.taps if plan.up == 1 and plan.down > 1 else plan.frame_taps).to(device)
+    (a decimating FIR), else ``kernels.resample_poly.tap_table``."""
+    if plan.up == 1 and plan.down > 1:
+        return torch.from_numpy(plan.taps).to(device)
+    from tpusdr_torch.kernels.resample_poly import tap_table
+
+    return tap_table(plan, device)
 
 
 def resample_apply(state, x, plan: ResamplerPlan, taps: torch.Tensor | None = None):
@@ -141,7 +146,9 @@ def resample_apply(state, x, plan: ResamplerPlan, taps: torch.Tensor | None = No
 
     ``taps`` is ``plan_taps(plan, x.device)``; the Resampler block caches
     it, since a copy from host memory every step would wait for the device
-    each time.  Built here when not given."""
+    each time.  Built here when not given.  ``up == 1`` is the decimating
+    FIR; else ``kernels.resample_poly``: on the card one kernel over every
+    row, on the CPU ``_resample_real`` behind the ``cat``."""
     if x.shape[-1] != plan.block_in:
         raise ValueError(f"expected block of {plan.block_in}, got {x.shape[-1]}")
     if taps is None:
@@ -150,14 +157,6 @@ def resample_apply(state, x, plan: ResamplerPlan, taps: torch.Tensor | None = No
         from tpusdr_torch.ops import fir
 
         return fir.fir_apply(state, x, taps, plan.down)
-    hist = plan.history
-    ext = torch.cat([state, x], dim=-1)
-    if ext.is_complex():
-        y = torch.complex(
-            _resample_real(ext.real.contiguous(), plan, taps),
-            _resample_real(ext.imag.contiguous(), plan, taps),
-        )
-    else:
-        y = _resample_real(ext, plan, taps)
-    new_state = ext[..., ext.shape[-1] - hist :].clone() if hist > 0 else ext[..., :0]
-    return new_state, y
+    from tpusdr_torch.kernels.resample_poly import resample_poly
+
+    return resample_poly(state, x, plan, taps)

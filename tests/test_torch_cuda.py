@@ -17,6 +17,7 @@ Remez taps on the host first, which takes a minute or two.
 """
 
 import copy
+from typing import NamedTuple
 
 import numpy as np
 import pytest
@@ -173,8 +174,9 @@ def test_fm_fused(cuda, rng, T, D, M, form, tile, hist):
     of (T-1) + D samples, or none), several NCO phases (one that wraps
     inside the first block) and increments either side of 2^31, each given
     by value and as the carried phase through the pointer (bit for bit the
-    same).  x ends in D // 2 NaN samples past the last one a tap reads:
-    they must reach no output."""
+    same, and bit for bit the same tensor handed over whole).  x ends in
+    D // 2 NaN samples past the last one a tap reads: they must reach no
+    output."""
     assert tfm.fm_fused_plan(T, D, M) == (form, tile, T)
     h = taps(T, False, cuda)
     n = (T - 1) + (M + 1) * D
@@ -190,6 +192,8 @@ def test_fm_fused(cuda, rng, T, D, M, form, tile, hist):
         by_value = tfm.fused_fm_demod(z[H:], h, D, inc, ph, 0.32, history=z[:H] if H else None)
         assert tfm.fused_fm_demod.launches == before + 2
         assert torch.equal(got, by_value)
+        if H:
+            assert torch.equal(got, tfm.fused_fm_demod(z, h, D, inc, ph, 0.32))
         ref = tfm.fused_fm_demod_plain(z[:n], h, D, inc, ph, 0.32, M)
         assert got.shape == (M,) and bool(torch.isfinite(got).all())
         np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * 0.32)
@@ -201,6 +205,7 @@ def test_fm_fused(cuda, rng, T, D, M, form, tile, hist):
         ((2e6, 300e3, receiver.WBFM), {}, 40000, "banded_fir"),
         ((2e6, 300e3, receiver.WBFM), {"use_fused": True}, 128000, "banded_fir_prelude"),
         ((2e6, 100e3, receiver.NBFM), {"use_fused": True}, 33000, "fused_fm_demod"),
+        ((20e6, 2.5e6, receiver.WBFM), {}, 131_250, "banded_fir"),  # wbfm.live's block: 3/25 over 2,625
     ],
 )
 def test_receiver_on_the_card_matches_cpu(cuda, rng, args, kw, tick, wrapper):
@@ -663,16 +668,14 @@ def test_channel_bank_on_the_card_matches_cpu(cuda, fs, m, audio, tick, n_out):
 # -- the captured step: one CUDA graph a tick ---------------------------------------------
 
 
-def wbfm_graph(fs, offset):
+def wbfm_graph_spec(fs, offset):
     """The WBFM receiver as a reference-schema JSON graph: Cosine x
     Multiply -> Fir (K4, the receiver's own taps) -> QuadDemod -> Deemphasis
-    -> Resampler (chip_smoke.py's phase 7 graph without its IO nodes)."""
-    from tpusdr_torch.graph.graph import build_graph
-
+    -> Resampler, the tick in through an exposed port."""
     chain, _ = receiver.fm_receiver(fs, offset, receiver.WBFM)
     fir = chain.get_block("shiftfir")
     rate = fs / fir.decimation
-    return build_graph({
+    return {
         "nodes": {
             "osc": {"type": "Cosine", "sampleRate": fs, "frequency": -offset, "sampleType": "FloatComplex"},
             "mix": {"type": "Multiply"},
@@ -690,7 +693,27 @@ def wbfm_graph(fs, offset):
         ],
         "inputPorts": [{"exposedPort": 0, "mapped": {"node": "mix", "port": 0}}],
         "outputPort": "rs",
-    })
+    }
+
+
+def wbfm_graph(fs, offset):
+    from tpusdr_torch.graph.graph import build_graph
+
+    return build_graph(wbfm_graph_spec(fs, offset))
+
+
+def wbfm_app_spec(wav, n_ticks, queue):
+    """The WBFM 20 Msps JSON graph as an app: a Synth source of the 1 kHz
+    tone at +2.5 MHz into the mixer, the oscillator on a named queue, the
+    audio into a WavWriter."""
+    spec = wbfm_graph_spec(20e6, 2.5e6)
+    del spec["inputPorts"], spec["outputPort"]
+    spec["nodes"]["src"] = {"type": "Synth", "kind": "fm", "sampleRate": 20e6, "audioHz": 1000.0,
+                            "deviation": 75e3, "carrierOffset": 2.5e6, "numBlocks": n_ticks}
+    spec["nodes"]["osc"]["commandQueueId"] = queue
+    spec["nodes"]["wav"] = {"type": "WavWriter", "path": str(wav), "sampleRate": 48000}
+    spec["connections"] += [{"source": "src", "sink": "mix"}, {"source": "rs", "sink": "wav"}]
+    return spec
 
 
 def bank_ticks(n_ticks, tick, fs=20.48e6, m=64):
@@ -700,21 +723,54 @@ def bank_ticks(n_ticks, tick, fs=20.48e6, m=64):
     return list(z.astype(np.complex64).reshape(n_ticks, tick))
 
 
-#: label -> () -> (block, host ticks, the kernel the path launches): the
-#: configurations of chip_smoke.py's captured-step phase, 8 ticks each
+class Path(NamedTuple):
+    """A main path on the card: its block, host ticks and audio rate, the
+    kernels it launches a tick, the tones its audio carries as (row or
+    None, Hz, amplitude or None, least SNR dB, a tone of another row that
+    must stay under a tenth of this one's amplitude, or None), and a
+    function making another path that computes the same audio, or None."""
+
+    block: object
+    ticks: list
+    rate: float
+    per_tick: dict
+    tones: list
+    twin: object = None
+
+
+WBFM_TONE = (None, 1000.0, 0.375 * 0.905, 60.0, None)  # deviation/channel width x de-emphasis gain at 1 kHz
+
+
+def wbfm_20msps():
+    return receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0]
+
+
+def wbfm_ticks(rng, n_ticks=8):
+    return np.split(fm_tone(rng, n_ticks * 1_280_000, 20e6, 2.5e6, 75e3), n_ticks)
+
+
+#: label -> rng -> Path: the main paths the runner captures, 8 ticks each
+#: (AM 16: over 8 the DC block's settling is still in the last two thirds,
+#: 59.4 dB on the CPU against 60.7 over 16)
 CAPTURED = {
-    "wbfm default": lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0],
-                                 np.split(fm_tone(rng, 8 * 1_280_000, 20e6, 2.5e6, 75e3), 8), "banded_fir"),
-    "wbfm fused": lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM, use_fused=True)[0],
-                               np.split(fm_tone(rng, 8 * 1_280_000, 20e6, 2.5e6, 75e3), 8), "banded_fir_prelude"),
-    "nbfm fused": lambda rng: (receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)[0],
-                               np.split(fm_tone(rng, 8 * 1_320_000, 2e6, 100e3, 5e3), 8), "fused_fm_demod"),
-    "am k4": lambda rng: (receiver.am_receiver(20e6, 1.2e6, input_format="int8", fir_mode="pallas",
-                                               fold_shift=False)[0],
-                          am_ticks(1_280_000, 20e6, 1.2e6, 8), "fir_decim"),
-    "json graph": lambda rng: (wbfm_graph(20e6, 2.5e6), np.split(fm_tone(rng, 8 * 1_280_000, 20e6, 2.5e6, 75e3), 8),
-                               "fir_decim"),
-    "bank": lambda rng: (multichannel.fm_channel_bank(20.48e6, 64, 16000.0)[0], bank_ticks(8, 2_096_640), None),
+    "wbfm default": lambda rng: Path(wbfm_20msps(), wbfm_ticks(rng), 48000.0,
+                                     {"banded_fir": 1, "resample_poly": 1}, [WBFM_TONE]),
+    "wbfm fused": lambda rng: Path(receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM, use_fused=True)[0],
+                                   wbfm_ticks(rng), 48000.0, {"banded_fir_prelude": 1, "resample_poly": 1},
+                                   [WBFM_TONE], wbfm_20msps),
+    # NBFM's 5 kHz deviation against this noise: about 50 dB on the CPU
+    "nbfm fused": lambda rng: Path(receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)[0],
+                                   np.split(fm_tone(rng, 8 * 1_320_000, 2e6, 100e3, 5e3), 8), 48000.0,
+                                   {"fused_fm_demod": 1, "resample_poly": 1}, [(None, 1000.0, None, 45.0, None)]),
+    "am k4": lambda rng: Path(receiver.am_receiver(20e6, 1.2e6, input_format="int8", fir_mode="pallas",
+                                                   fold_shift=False)[0],
+                              am_ticks(1_280_000, 20e6, 1.2e6, 16), 48000.0, {"fir_decim": 2, "resample_poly": 1},
+                              [(None, 700.0, 0.25, 60.0, None)],  # carrier 0.5 x depth 0.5
+                              lambda: receiver.am_receiver(20e6, 1.2e6, input_format="int8")[0]),
+    "json graph": lambda rng: Path(wbfm_graph(20e6, 2.5e6), wbfm_ticks(rng), 48000.0,
+                                   {"fir_decim": 1, "resample_poly": 1}, [WBFM_TONE], wbfm_20msps),
+    "bank": lambda rng: Path(multichannel.fm_channel_bank(20.48e6, 64, 16000.0)[0], bank_ticks(8, 2_096_640), 16000.0,
+                             {}, [(2, 700.0, None, 30.0, None), (61, 1200.0, None, 30.0, 700.0)]),
 }
 
 
@@ -733,26 +789,103 @@ def test_captured_step_equals_eager(cuda, rng, label):
     """Eight ticks and a short last one through the runner, captured (one
     graph replay a tick from the second tick on; the short block runs
     eager) against eager: the audio bit for bit, the same kernel launches
-    counted, the same length trimmed."""
-    block, ticks, wrapper = CAPTURED[label](rng)
+    counted, each kernel of the path as often a tick as the path launches
+    it and no other, every sample owed.  The eight ticks' audio carries its
+    tones (after the first third; a bank's station after the first half,
+    another station's tone under a tenth of it), its first two ticks lie
+    within -60 dB of the CPU's, and within -60 dB of another path that
+    computes the same audio on the card."""
+    path = CAPTURED[label](rng)
+    block = path.block
+    cpu_block = copy.deepcopy(block)
     block.to(cuda)
-    ticks = ticks + [ticks[0][: len(ticks[0]) // 2]]
+    ticks = path.ticks + [path.ticks[0][: len(path.ticks[0]) // 2]]
     eager, eager_counts, _, _ = runner_audio(block, ticks, False, device=cuda)
     captured, counts, runner, state = runner_audio(block, ticks, None, device=cuda)
     assert isinstance(runner._step, CapturedStep) and len(runner._step._graphs) == 1
-    assert counts == eager_counts
-    if wrapper is not None:
-        assert counts[wrapper] > 0
-    else:
-        assert not any(counts.values())
+    assert counts == eager_counts == {w.__name__: path.per_tick.get(w.__name__, 0) * len(ticks) for w in kernels.WRAPPERS}
     assert captured.shape == eager.shape and np.array_equal(captured, eager)
+    assert captured.shape[-1] == sum(len(t) for t in ticks) * block.up // block.down
     assert all(leaf.device == cuda for leaf in torch.utils._pytree.tree_flatten(state)[0])
+    audio = captured[..., : sum(len(t) for t in path.ticks) * block.up // block.down]
+    for row, hz, amp, snr_db, other_hz in path.tones:
+        x = audio[len(audio) // 3 :] if row is None else audio[row][audio.shape[-1] // 2 :]
+        got_amp, got_snr = tone_amp_snr(x, path.rate, hz)
+        assert got_snr > snr_db and (amp is None or abs(got_amp - amp) < 0.02), (row, got_amp, got_snr)
+        if other_hz is not None:
+            assert tone_amp_snr(x, path.rate, other_hz)[0] < 0.1 * got_amp
+    state, ref = cpu_block.init_state(), []
+    for t in path.ticks[:2]:
+        state, y = cpu_block.apply(state, torch.from_numpy(t))
+        ref.append(y.numpy())
+    ref = np.concatenate(ref, axis=-1)
+    rows = [row for row, *_ in path.tones if row is not None]  # a bank: its stations' channels
+    pick = (lambda a: a[rows]) if rows else (lambda a: a)
+    assert err_db(pick(ref), pick(audio[..., : ref.shape[-1]])) <= -60.0
+    if path.twin is not None:
+        twin = path.twin().to(cuda)
+        state, outs = twin.init_state(device=cuda), []
+        for t in path.ticks:
+            state, y = twin.apply(state, torch.from_numpy(t).to(cuda))
+            outs.append(y)
+        assert err_db(torch.cat(outs, dim=-1).cpu().numpy(), audio) <= -60.0
+
+
+#: label -> (the chain, one tick of its input, the shortest operand of a
+#: concatenation in front of its kernel): K3 in the NBFM 2 Msps front end,
+#: the AM chain's two K4 stages (the second's input is the tick over 250)
+#: and the JSON graph's Fir (K4)
+UNJOINED = {
+    "nbfm fused": (lambda: receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)[0],
+                   lambda rng: fm_tone(rng, 1_320_000, 2e6, 100e3, 5e3), 1_320_000),
+    "am k4": (lambda: receiver.am_receiver(20e6, 1.2e6, input_format="int8", fir_mode="pallas", fold_shift=False)[0],
+              lambda rng: am_ticks(1_280_000, 20e6, 1.2e6, 1)[0], 1_280_000 // 250),
+    "json graph": (lambda: wbfm_graph(20e6, 2.5e6), lambda rng: fm_tone(rng, 1_280_000, 20e6, 2.5e6, 75e3), 1_280_000),
+}
+
+
+@pytest.mark.parametrize("label", list(UNJOINED))
+def test_kernels_read_the_tick_where_it_lies(cuda, rng, monkeypatch, label):
+    """A warm tick of the path on the card joins no operand as long as its
+    kernel's input: K3 and K4 read [carry, tick] through two pointers.  The
+    JSON graph's Fir as it was before the second pointer (the tick joined
+    behind its carry, then the kernel) shows the one such concatenation."""
+    import types
+
+    build, draw, min_len = UNJOINED[label]
+    chain = build().to(cuda)
+    x = torch.from_numpy(draw(rng)).to(cuda)
+    state = chain.init_state(device=cuda)
+    for _ in range(2):
+        state, _ = chain.apply(state, x)
+    cats, real_cat = [], torch.cat
+
+    def spy(tensors, *args, **kw):
+        lengths = [t.shape[-1] for t in tensors if t.dim()]
+        if max(lengths, default=0) >= min_len:
+            cats.append(lengths)
+        return real_cat(tensors, *args, **kw)
+
+    monkeypatch.setattr(torch, "cat", spy)
+    chain.apply(state, x)
+    assert cats == []
+    if label == "json graph":
+        fir = chain.get_block("rf.fir")
+        T = fir.taps.shape[-1]
+
+        def cat_then_kernel(self, carry, x):
+            ext = torch.cat([carry, x])
+            return ext[ext.shape[-1] - (T - 1) :].clone(), tfp.fir_decim(ext, self.taps, self.decimation)
+
+        monkeypatch.setattr(fir, "_apply_pallas", types.MethodType(cat_then_kernel, fir))
+        chain.apply(state, x)
+        assert len(cats) == 1, cats
 
 
 def test_update_parameters_recaptures(cuda, rng):
     """A new offset halfway through (WBFM): the runner drops its graphs,
-    the next tick runs eager and the one after is captured anew; the audio
-    equals an eager run with the same update, bit for bit."""
+    the next tick runs eager and the one after is captured anew, one graph;
+    the audio equals an eager run with the same update, bit for bit."""
     ticks = np.split(fm_tone(rng, 8 * 40000, 2e6, 300e3, 75e3), 8)
     outs = []
     for capture in (False, None):
@@ -765,33 +898,89 @@ def test_update_parameters_recaptures(cuda, rng):
         assert runner._step is not first
         runner.run(iter(ticks[4:]), sink, state=state)
         outs.append(sink.result())
+        assert capture is False or len(runner._step._graphs) == 1
     assert np.array_equal(outs[0], outs[1])
 
 
 def test_merged_runner_captures_on_two_queues(cuda, rng):
     """Two JSON graphs on two queues, captured on each queue's stream,
-    against eager steps: the outputs bit for bit, K4 counted once a tick
-    each.  Each output is cloned on its queue's stream: it is the graph's
-    static buffer, which the next replay there overwrites."""
+    against eager steps, against both captured on one queue and against
+    each graph alone on its queue: the outputs bit for bit, K4 and the
+    resampler's kernel counted once a tick each.  Each output is cloned on
+    its queue's stream: it is the graph's static buffer, which the next
+    replay there overwrites."""
     reg = queues.get_queue_registry()
     qs = {"a": reg.create("capture-a", {"queueType": "cuda"}), "b": reg.create("capture-b", {"queueType": "cuda"})}
     ticks = {n: [torch.from_numpy(t).to(cuda) for t in np.split(fm_tone(rng, 6 * 40000, 2e6, 300e3, 75e3), 6)]
              for n in qs}
-    outs = {}
-    for capture in (False, None):
-        runner = queues.MergedRunner({n: wbfm_graph(2e6, 300e3).to(cuda) for n in qs}, queue=qs, capture=capture)
-        states, got = runner.init_state(), {n: [] for n in qs}
+
+    def drive(queue, names, capture=None):
+        runner = queues.MergedRunner({n: wbfm_graph(2e6, 300e3).to(cuda) for n in names}, queue=queue, capture=capture)
+        states, got = runner.init_state(), {n: [] for n in names}
         kernels.reset_launch_counts()
         for i in range(6):
-            states, ys = runner.step(states, {n: ticks[n][i] for n in qs})
-            for n in qs:
-                with qs[n].activate():
+            states, ys = runner.step(states, {n: ticks[n][i] for n in names})
+            for n in names:
+                with runner.queues[n].activate():
                     got[n].append(ys[n].clone())
         runner.synchronize()
-        assert kernels.fir_decim.launches == 2 * 6
-        outs[capture] = {n: torch.cat(got[n]) for n in qs}
+        assert (kernels.fir_decim.launches, trp.resample_poly.launches) == (6 * len(names), 6 * len(names))
+        return {n: torch.cat(got[n]) for n in names}
+
+    two, eager, one = drive(qs, list(qs)), drive(qs, list(qs), capture=False), drive(qs["a"], list(qs))
     for n in qs:
-        assert torch.equal(outs[None][n], outs[False][n])
+        alone = drive(qs[n], [n])[n]
+        assert torch.equal(two[n], eager[n]) and torch.equal(two[n], one[n]) and torch.equal(two[n], alone)
+
+
+def test_json_app_runs_on_a_named_queue(cuda, tmp_path):
+    """``compile_app(...).run()`` of the WBFM 20 Msps JSON app (its Synth
+    source and WavWriter), the oscillator on a named queue, 8 ticks of
+    1,280,000: the tick and granule, every block and sample of the source,
+    K4 and the resampler's kernel once a tick and no other, the tone at
+    0.34 and SNR > 60 dB, the same app on the CPU within -60 dB over two
+    ticks, the fm_receiver on the same blocks within -60 dB; stopped after
+    4 ticks, checkpointed and resumed by a fresh app: the audio bit for
+    bit."""
+    import itertools
+
+    from tpusdr_torch.graph.app import compile_app
+
+    queues.get_queue_registry().create("app-q", {"queueType": "cuda", "cudaDevice": 0})
+    tick, n = 1_280_000, 8
+
+    def app(name, blocks=n, **kw):
+        return compile_app(wbfm_app_spec(tmp_path / f"{name}.wav", blocks, "app-q"), tick=tick, **kw)
+
+    whole = app("whole", queue="app-q")
+    assert whole.tick == tick and whole.graph.granule == 1250
+    kernels.reset_launch_counts()
+    stats = whole.run()
+    torch.cuda.synchronize()
+    assert {w.__name__: w.launches for w in kernels.WRAPPERS if w.launches} == {"fir_decim": n, "resample_poly": n}
+    assert stats.blocks == n and sum(len(b) for b in whole.source_factory(tick)) == n * tick
+    audio, fs = read_wav(tmp_path / "whole.wav")
+    amp, snr = tone_amp_snr(audio[len(audio) // 3 :], fs)
+    assert abs(amp - 0.375 * 0.905) < 0.02 and snr > 60.0, (amp, snr)
+    app("cpu", 2, device="cpu").run()
+    ref, _ = read_wav(tmp_path / "cpu.wav")
+    assert err_db(ref, audio[: len(ref)]) <= -60.0
+    chain = wbfm_20msps().to(cuda)
+    state, outs = chain.init_state(device=cuda), []
+    for b in whole.source_factory(tick):
+        state, y = chain.apply(state, torch.from_numpy(b).to(cuda))
+        outs.append(y)
+    want = torch.cat(outs).cpu().numpy()
+    assert len(audio) == len(want) and err_db(want, audio) <= -60.0
+    first = app("first", queue="app-q")
+    first.run(max_blocks=n // 2)
+    save_state(str(tmp_path / "state.npz"), first.state)
+    second = app("second", queue="app-q")
+    source = second.source_factory
+    second.source_factory = lambda t: itertools.islice(iter(source(t)), n // 2, None)
+    second.run(state=load_state(str(tmp_path / "state.npz"), second.runner.init_state()))
+    joined = np.concatenate([read_wav(tmp_path / "first.wav")[0], read_wav(tmp_path / "second.wav")[0]])
+    assert np.array_equal(joined, audio)
 
 
 def test_k3_pointer_form_near_the_wrap(cuda, rng):
@@ -816,16 +1005,17 @@ def test_k3_pointer_form_near_the_wrap(cuda, rng):
 # -- the sharded streams (tpusdr_torch.parallel) on the card ---------------------------------
 
 #: label -> (rng -> (block, three host ticks), shards, stagewise, the kernel the
-#: path launches): chip_smoke.py's phase 12 at three ticks
+#: path launches): the sharded paths at three ticks
 SHARDED = {
-    "wbfm stagewise": (lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0],
-                                    np.split(fm_tone(rng, 3 * 1_280_000, 20e6, 2.5e6, 75e3), 3)), 8, True, "banded_fir"),
-    "wbfm chain-wide": (lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0],
-                                     np.split(fm_tone(rng, 3 * 1_280_000, 20e6, 2.5e6, 75e3), 3)), 8, False, "banded_fir"),
+    "wbfm stagewise": (lambda rng: (wbfm_20msps(), wbfm_ticks(rng, 3)), 8, True, "banded_fir"),
+    "wbfm chain-wide": (lambda rng: (wbfm_20msps(), wbfm_ticks(rng, 3)), 8, False, "banded_fir"),
+    # K2's granule: ticks of 2,560,000 over two shards
+    "wbfm fused": (lambda rng: (receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM, use_fused=True)[0],
+                                np.split(fm_tone(rng, 3 * 2_560_000, 20e6, 2.5e6, 75e3), 3)), 2, True,
+                   "banded_fir_prelude"),
     "nbfm fused": (lambda rng: (receiver.fm_receiver(2e6, 100e3, receiver.NBFM, use_fused=True)[0],
                                 np.split(fm_tone(rng, 3 * 1_320_000, 2e6, 100e3, 5e3), 3)), 8, True, "fused_fm_demod"),
-    "json graph": (lambda rng: (wbfm_graph(20e6, 2.5e6), np.split(fm_tone(rng, 3 * 1_280_000, 20e6, 2.5e6, 75e3), 3)),
-                   8, False, "fir_decim"),
+    "json graph": (lambda rng: (wbfm_graph(20e6, 2.5e6), wbfm_ticks(rng, 3)), 8, False, "fir_decim"),
 }
 
 
@@ -843,12 +1033,13 @@ def sharded_audio(obj, ticks, device):
 
 @pytest.mark.parametrize("label", list(SHARDED))
 def test_sharded_stream_on_the_card(cuda, rng, label):
-    """A TimeShardedStream over LocalMesh(8) on the card, captured (one
-    graph a tick from the second tick on) and eager: bit for bit the same,
+    """A TimeShardedStream over LocalMesh(8) (K2: 2) on the card, captured
+    (one graph a tick from the second tick on) and eager: bit for bit the same,
     the path's kernel and the resampler's launched once a shard a tick;
-    the audio within -60 dB
-    of the same stream on the CPU and within -100 dB of the unsharded
-    chain on the card."""
+    the audio within -60 dB of the same stream on the CPU and within -100
+    dB of the unsharded chain on the card, its tone (after the first third)
+    at the unsharded chain's amplitude (WBFM 0.34) and SNR > 60 dB (NBFM
+    45)."""
     from tpusdr_torch.parallel import TimeShardedStream, make_mesh
 
     build, shards, stagewise, wrapper = SHARDED[label]
@@ -873,13 +1064,19 @@ def test_sharded_stream_on_the_card(cuda, rng, label):
         outs.append(y)
     unsharded = torch.cat(outs).cpu().numpy()
     assert np.array_equal(unsharded, captured) or err_db(unsharded, captured) <= -100.0
+    amp, snr = tone_amp_snr(captured[len(captured) // 3 :], 48000.0)
+    assert abs(amp - tone_amp_snr(unsharded[len(unsharded) // 3 :], 48000.0)[0]) < 0.02
+    nbfm = label == "nbfm fused"  # its 5 kHz deviation against this noise: about 50 dB on the CPU
+    assert snr > (45.0 if nbfm else 60.0) and (nbfm or abs(amp - WBFM_TONE[2]) < 0.02), (amp, snr)
 
 
 @pytest.mark.parametrize("shards", [4, 5])
 def test_sharded_bank_on_the_card(cuda, shards):
     """The 64-channel bank over LocalMesh(4) and (5) (65 channels, one
-    dead) on the card, captured and eager bit for bit, no kernel launched;
-    the stations' audio within -60 dB of the same bank on the CPU."""
+    dead) on the card, captured (one graph) and eager bit for bit, no
+    kernel launched; the stations' audio within -60 dB of the same bank on
+    the CPU, each at SNR > 30 dB over the second half, the other station's
+    tone under a tenth of it."""
     from tpusdr_torch.graph.chain import Chain
     from tpusdr_torch.parallel import ChannelShardedBank, make_mesh
 
@@ -890,12 +1087,18 @@ def test_sharded_bank_on_the_card(cuda, shards):
     def make(blocks, device, capture=None):
         return ChannelShardedBank(blocks[0][1], Chain(blocks[1:]), make_mesh(shards, device=device), capture=capture)
 
-    captured, counts = sharded_audio(make(chain.blocks, None), ticks, cuda)
+    bank = make(chain.blocks, None)
+    captured, counts = sharded_audio(bank, ticks, cuda)
     eager, _ = sharded_audio(make(chain.blocks, None, capture=False), ticks, cuda)
     assert np.array_equal(captured, eager) and not any(counts.values())
+    assert bank.capture and len(next(iter(bank._step_cache.values()))._graphs) == 1
     on_cpu, _ = sharded_audio(make(cpu_chain.blocks, "cpu"), ticks, "cpu")
     assert captured.shape == on_cpu.shape == (64, 3 * 2_096_640 // 1280)
     assert err_db(on_cpu[[2, 61]], captured[[2, 61]]) <= -60.0
+    for k, hz, other in ((2, 700.0, 1200.0), (61, 1200.0, 700.0)):
+        x = captured[k][captured.shape[-1] // 2 :]
+        amp, snr = tone_amp_snr(x, 16000.0, hz)
+        assert snr > 30.0 and tone_amp_snr(x, 16000.0, other)[0] < 0.1 * amp, (k, amp, snr)
 
 
 @pytest.mark.parametrize(
@@ -952,37 +1155,115 @@ def tone_amp_snr(x, fs, f=1000.0):
     return float(np.hypot(*c)), float(10 * np.log10((fit**2).mean() / (r**2).mean()))
 
 
-def test_native_equals_the_file_path_on_the_card(cuda, rng, tmp_path):
-    """The receive CLI on an int8 WBFM 20 Msps capture of 3 ticks and a
-    300,000-sample tail, with --native (the host library's ring) and
-    without: the WAVs equal byte for byte, tail included; K1 once a block."""
+def read_wav(path):
     import wave
 
-    from tpusdr_torch.apps import receive
+    with wave.open(str(path)) as w:
+        fs = w.getframerate()
+        x = np.frombuffer(w.readframes(w.getnframes()), dtype="<i2").astype(np.float32) / 32767
+    return x, fs
 
+
+#: mod -> (offset, whole ticks of the capture, its int8 words, the tone in
+#: Hz and its amplitude, the RF kernel's launches a block): AM's two RF
+#: stages are K1 too; over 16 ticks its DC block has settled in the first
+#: third
+CLI_CAPTURES = {
+    "wbfm": (2.5e6, 3, lambda rng, n: int8_words(fm_tone(rng, n, 20e6, 2.5e6, 75e3)), 1000.0, 0.375 * 0.905, 1),
+    "am": (1.2e6, 16, lambda rng, n: np.concatenate(am_ticks(1_280_000, 20e6, 1.2e6, 17))[:n], 700.0, 0.25, 2),
+}
+
+
+@pytest.mark.parametrize("mod", list(CLI_CAPTURES))
+def test_native_equals_the_file_path_on_the_card(cuda, rng, tmp_path, mod):
+    """The receive CLI at 20 Msps on an int8 capture of whole ticks and a
+    300,000-sample tail, with --native (the host library's ring) and
+    without: the WAVs equal byte for byte, tail included, the tone at its
+    amplitude and SNR > 60 dB after the first third; the RF kernel and the
+    resampler's once a block; the first two ticks within -60 dB of the CLI
+    on the CPU; the host library's stream alone reads every sample."""
+    from tpusdr_torch.apps import receive
+    from tpusdr_torch.io.native import NativeFileStream
+
+    offset, n_ticks, words, hz, amp, per_block = CLI_CAPTURES[mod]
     tick, fs = 1_280_000, 20e6
-    capture = tmp_path / "wbfm.iq"
-    int8_words(fm_tone(rng, 3 * tick + 300_000, fs, 2.5e6, 75e3)).tofile(capture)
+    n_in = n_ticks * tick + 300_000
+    capture = tmp_path / f"{mod}.iq"
+    words(rng, n_in).tofile(capture)
     wavs = {}
-    for label, extra in (("native", ["--native"]), ("plain", [])):
+    for label, extra in (("native", ["--native"]), ("plain", []), ("cpu", [])):
         wavs[label] = tmp_path / f"{label}.wav"
+        device, duration = ("cpu", 2 * tick / fs) if label == "cpu" else ("cuda", (n_ticks + 1.5) * tick / fs)
         kernels.reset_launch_counts()
-        assert receive.main(["--device", "cuda", "--mod", "wbfm", "--format", "int8", "--input", str(capture),
-                             "--rf-rate", "20e6", "--offset", "2.5e6", "--tick", str(tick),
-                             "--duration", str(4.5 * tick / fs), "--audio", str(wavs[label]), *extra]) == 0
-        torch.cuda.synchronize()
-        assert kernels.banded_fir.launches == 4
-    with wave.open(str(wavs["native"])) as w:
-        assert w.getnframes() == (3 * tick + 300_000) * 3 // 1250  # the tail's audio included
+        assert receive.main(["--device", device, "--mod", mod, "--format", "int8", "--input", str(capture),
+                             "--rf-rate", "20e6", "--offset", str(offset), "--tick", str(tick),
+                             "--duration", str(duration), "--audio", str(wavs[label]), *extra]) == 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            assert {w.__name__: w.launches for w in kernels.WRAPPERS if w.launches} == {
+                "banded_fir": per_block * (n_ticks + 1), "resample_poly": n_ticks + 1}
     assert wavs["native"].read_bytes() == wavs["plain"].read_bytes()
+    audio, wav_fs = read_wav(wavs["native"])
+    assert len(audio) == n_in * 3 // 1250  # 48 kHz: the tail's audio included
+    got_amp, snr = tone_amp_snr(audio[len(audio) // 3 :], wav_fs, hz)
+    assert abs(got_amp - amp) < 0.02 and snr > 60.0, (got_amp, snr)
+    ref, _ = read_wav(wavs["cpu"])
+    assert len(ref) == 2 * tick * 3 // 1250 and err_db(ref, audio[: len(ref)]) <= -60.0
+    with NativeFileStream(str(capture), tick, "int8") as stream:
+        assert sum(len(words) for words in stream) == n_in
+
+
+def test_digital_app_on_the_card_matches_cpu(cuda, tmp_path):
+    """The digital-voice app on its synthetic source, 8 ticks of 1,048,560
+    at 1 Msps: K1 once a tick, every audio sample of the whole ticks, the
+    500 Hz line the spectrum's peak with over half the energy after the
+    first third, the first two ticks within -60 dB of the app on the
+    CPU."""
+    from tpusdr_torch.apps import digital
+
+    n_blocks, tick = 8, (1 << 20) // 120 * 120
+    kernels.reset_launch_counts()
+    assert digital.main(["--device", "cuda", "--duration", str((n_blocks + 0.4) * tick / 1e6),
+                         "--audio", str(tmp_path / "card.wav")]) == 0
+    torch.cuda.synchronize()
+    assert kernels.banded_fir.launches == n_blocks
+    assert digital.main(["--device", "cpu", "--duration", str(2.4 * tick / 1e6), "--audio", str(tmp_path / "cpu.wav")]) == 0
+    audio, _ = read_wav(tmp_path / "card.wav")
+    ref, _ = read_wav(tmp_path / "cpu.wav")
+    assert len(audio) == n_blocks * tick // 120
+    x = audio[len(audio) // 3 :].astype(np.float64)
+    spec = np.abs(np.fft.rfft(x * np.hanning(len(x)))) ** 2
+    k = int(spec.argmax())
+    assert abs(np.fft.rfftfreq(len(x), 120 / 1e6)[k] - 500.0) < 2.0  # the audio rate is 1e6 / 120
+    assert spec[max(0, k - 3) : k + 4].sum() > 0.5 * spec.sum()
+    assert err_db(ref, audio[: len(ref)]) <= -60.0
+
+
+def test_channels_app_on_the_card(cuda, tmp_path):
+    """The channels app at its defaults (16 channels, 5.12 Msps, 2 s) on the
+    card, writing channels 2 and 13: no kernel launched (the bank's stages
+    are plain ops), each station's tone at SNR > 30 dB over the second
+    half, the other station's under a tenth of it."""
+    from tpusdr_torch.apps import channels
+
+    kernels.reset_launch_counts()
+    assert channels.main(["--device", "cuda", "--write", "2,13", "--out-dir", str(tmp_path)]) == 0
+    torch.cuda.synchronize()
+    assert not any(w.launches for w in kernels.WRAPPERS)
+    for k, hz, other in ((2, 700.0, 1200.0), (13, 1200.0, 700.0)):
+        x, fs = read_wav(tmp_path / f"ch{k:03d}.wav")
+        x = x[len(x) // 2 :]
+        amp, snr = tone_amp_snr(x, fs, hz)
+        assert snr > 30.0 and tone_amp_snr(x, fs, other)[0] < 0.1 * amp, (k, amp, snr)
 
 
 def test_shim_loop_recaptures_after_a_retune(cuda):
     """Fake radio -> RfShim -> SocketIqSource -> the WBFM 20 Msps receiver
     on a captured runner, retuned by SdrReceiverControl.tune_radio after 4
-    ticks: old-centre blocks flushed, none dropped, one recapture, K1 once
-    a tick, the 1 kHz tone on both sides (the first tick after the retune
-    skipped) at 0.34 and SNR > 60 dB."""
+    ticks: old-centre blocks flushed, none dropped, one recapture, the NCO
+    at the station's new offset, K1 and the resampler's kernel once a tick,
+    the 1 kHz tone on both sides (the first tick after the retune skipped)
+    at 0.34 and SNR > 60 dB."""
     import time
 
     from tpusdr_torch.io.control import SdrControlClient, SdrReceiverControl
@@ -1017,11 +1298,38 @@ def test_shim_loop_recaptures_after_a_retune(cuda):
             src.close()
             client.stop()
     assert runner._step is not first and len(runner._step._graphs) == 1
-    assert kernels.banded_fir.launches == 2 * half
+    assert abs(chain.get_block("shiftfir").frequency + 1.5e6) < 1.0
+    assert kernels.banded_fir.launches == trp.resample_poly.launches == 2 * half
     per_tick = tick * 3 // 1250
     for audio in (sinks[0].result()[per_tick:], sinks[1].result()[per_tick:]):
         amp, snr = tone_amp_snr(audio, spec.audio_rate)
         assert abs(amp - 0.375 * 0.905) < 0.02 and snr > 60.0, (amp, snr)
+
+
+def test_dist_mesh_over_nccl_in_one_process(cuda, rng, tmp_path):
+    """A DistMesh over NCCL at world size 1 in this process (meeting through
+    a FileStore): one WBFM 20 Msps tick through a TimeShardedStream equals a
+    LocalMesh(1)'s bit for bit, K1 once."""
+    import torch.distributed as dist
+
+    from tpusdr_torch.parallel import TimeShardedStream, make_mesh
+    from tpusdr_torch.parallel.mesh import DistMesh, LocalMesh
+
+    chain = wbfm_20msps()
+    x = torch.from_numpy(fm_tone(rng, 1_280_000, 20e6, 2.5e6, 75e3)).to(cuda)
+    local = TimeShardedStream(chain, LocalMesh({"dev": 1}, cuda), capture=False)
+    want = local.step(local.init_carry(), x)[1]
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        stream = TimeShardedStream(chain, mesh)
+        kernels.reset_launch_counts()
+        got = stream.step(stream.init_carry(), x)[1]
+        torch.cuda.synchronize()
+        assert isinstance(mesh, DistMesh) and dist.get_backend() == "nccl" and kernels.banded_fir.launches == 1
+        assert torch.equal(got, want)
+    finally:
+        dist.destroy_process_group()
 
 
 def test_nccl_processes_match_a_local_mesh(cuda, tmp_path):
@@ -1059,29 +1367,35 @@ def test_nccl_processes_match_a_local_mesh(cuda, tmp_path):
 
 
 def test_bench_scaling_on_the_card(cuda, capsys):
-    """``apps/bench_scaling`` at the 20 Msps design point: WBFM over 8 shards
-    of a 1,280,000-sample tick, chain-wide and stagewise, captured, K1 once
-    a shard a step, the output within -100 dB of the unsharded chain on the
-    same tick; the 64-channel bank over 8 (ticks of 2,096,640) within -60
-    dB; ``main`` prints its lines and the JSON line."""
+    """``apps/bench_scaling`` at the 20 Msps design point: WBFM over 1, 2, 4
+    and 8 shards of a 1,280,000-sample tick, chain-wide and stagewise,
+    captured, K1 and the resampler's kernel once a shard a step and no
+    other, the output within -100 dB of the unsharded chain on the same
+    tick; the 64-channel bank over 8 (ticks of 2,096,640) within -60 dB, no
+    kernel launched; ``main`` prints its lines and the JSON line."""
+    import itertools
     import json
 
     from tpusdr_torch.apps import bench_scaling
     from tpusdr_torch.graph.chain import Chain
 
     rng = np.random.default_rng(0)
-    for stagewise in (False, True):
+    for shards, stagewise in itertools.product((1, 2, 4, 8), (False, True)):
         kernels.reset_launch_counts()
-        r = bench_scaling.run_mesh("time", 8, 20e6, 1_280_000, 2, stagewise, "cuda", rng)
+        r = bench_scaling.run_mesh("time", shards, 20e6, 1_280_000, 2, stagewise, "cuda", rng)
         torch.cuda.synchronize()
         assert r.tick == 1_280_000 and r.sharded.capture and r.steps == 4
-        assert kernels.banded_fir.launches == 8 * r.steps
+        assert {w.__name__: w.launches for w in kernels.WRAPPERS if w.launches} == {
+            "banded_fir": shards * r.steps, "resample_poly": shards * r.steps}
         chain = r.sharded.full_chain
         state = chain.init_state(device=cuda)
         for _ in range(r.steps):
             state, y = chain.apply(state, r.x)
         assert err_db(y.cpu().numpy(), r.y.cpu().numpy()) <= -100.0
+    kernels.reset_launch_counts()
     r = bench_scaling.run_mesh("channels", 8, 20.48e6, 2_096_640, 2, False, "cuda", rng)
+    torch.cuda.synchronize()
+    assert not any(w.launches for w in kernels.WRAPPERS)
     bank = r.sharded
     chain = Chain([("channelizer", bank.channelizer), *bank.demod_chain.blocks])
     state = chain.init_state(device=cuda)
@@ -1098,8 +1412,9 @@ def test_bench_scaling_on_the_card(cuda, capsys):
 
 def test_scan_marginal_on_a_captured_tick(cuda):
     """``scan_marginal`` over ``captured_run`` of the WBFM 20 Msps tick:
-    every arm's run is k replays (K1 k times), and the slope lands within
-    25% of the captured tick's ms on CUDA events."""
+    every arm's run is k replays (K1 and the resampler's kernel k times,
+    no other), and the slope lands within 25% of the captured tick's ms on
+    CUDA events."""
     from tpusdr_torch.utils import profiling as tprof
 
     chain = receiver.fm_receiver(20e6, 2.5e6, receiver.WBFM)[0].to(cuda)
@@ -1111,7 +1426,7 @@ def test_scan_marginal_on_a_captured_tick(cuda):
     kernels.reset_launch_counts()
     run(state0, xs[:5])
     torch.cuda.synchronize()
-    assert kernels.banded_fir.launches == 5
+    assert {w.__name__: w.launches for w in kernels.WRAPPERS if w.launches} == {"banded_fir": 5, "resample_poly": 5}
     res = tprof.scan_marginal(run, state0, xs, ks=(8, 24, 48), reps=3)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1455,21 +1770,23 @@ def test_k3_channel_axis_matches_plain_and_single_channel_launches(cuda, rng, C)
         assert torch.equal(got[c], one), c
 
 
-def test_nbfm_channels_captured_on_the_card_matches_cpu(cuda, rng):
-    """The NBFM channels' chain (15 of the marine channels, ticks of 165,000)
-    through a traced CapturedStep, tick by tick against the eager CPU chain:
-    one K3 launch and C channel rows a tick, eager, captured or replayed;
-    the traced summary holds the ``frontend`` and ``audio`` stages and
-    channel rows over launches = C."""
+@pytest.mark.parametrize("every,tick,n_ticks", [(4, 8250 * 20, 4), (1, 8250 * 155, 2)])
+def test_nbfm_channels_captured_on_the_card_matches_cpu(cuda, rng, every, tick, n_ticks):
+    """The NBFM channels' chain (15 of the marine channels on ticks of
+    165,000, and the nbfm.capture cell's 57 on ticks of 1,278,750) through a
+    traced CapturedStep, tick by tick against the eager CPU chain: one K3
+    launch and C channel rows a tick, and one resampler launch over C rows,
+    eager, captured or replayed; the traced summary holds the ``frontend``
+    and ``audio`` stages and channel rows over launches = C."""
     from tpusdr_torch.models import nbfm_channels
     from tpusdr_torch.utils.tracing import Tracer
 
-    offsets = MARINE[::4]
-    C, tick = len(offsets), 8250 * 20
+    offsets = MARINE[::every]
+    C = len(offsets)
     cpu_chain, _ = nbfm_channels(2e6, offsets)
     gpu_chain = copy.deepcopy(cpu_chain).to(cuda)
-    z = sum(fm_tone(rng, 4 * tick, 2e6, f, 5e3) * 0.06 for f in offsets).astype(np.complex64)
-    ticks = np.split(z, 4)
+    z = sum(fm_tone(rng, n_ticks * tick, 2e6, f, 5e3) * 0.06 for f in offsets).astype(np.complex64)
+    ticks = np.split(z, n_ticks)
     cs, ref = cpu_chain.init_state(), []
     for blk in ticks:
         cs, cy = cpu_chain.apply(cs, torch.from_numpy(blk))
@@ -1487,8 +1804,8 @@ def test_nbfm_channels_captured_on_the_card_matches_cpu(cuda, rng):
     assert step.eager_ticks == 1 and step.captures == 1
     s = tr.summary()
     assert {"frontend", "audio"} <= set(s["stages"])
-    assert s["counters"]["launches"]["fused_fm_demod"] == s["counters"]["launches"]["resample_poly"] == 4
-    assert s["counters"]["channel_rows"]["fused_fm_demod"] == s["counters"]["rows"]["resample_poly"] == 4 * C
+    assert s["counters"]["launches"]["fused_fm_demod"] == s["counters"]["launches"]["resample_poly"] == n_ticks
+    assert s["counters"]["channel_rows"]["fused_fm_demod"] == s["counters"]["rows"]["resample_poly"] == n_ticks * C
 
 
 # -- the batched resampler: resample_poly ------------------------------------------------

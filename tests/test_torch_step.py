@@ -175,8 +175,8 @@ def test_shift_and_advance_state_equal_jax(kind, offset):
 
 
 def wbfm_graph_spec(fs=2e6, offset=300e3):
-    """The WBFM receiver as a reference-schema JSON graph (chip_smoke.py's
-    phase 7 shape at 2 Msps): Cosine x Multiply -> Fir (K4) -> QuadDemod ->
+    """The WBFM receiver as a reference-schema JSON graph (the card tests'
+    shape at 2 Msps): Cosine x Multiply -> Fir (K4) -> QuadDemod ->
     Deemphasis -> Resampler."""
     taps = sps.firwin(55, 0.1).astype(np.float32).tolist()
     return {

@@ -38,7 +38,6 @@ log = get_logger("profiling")
 
 SPIN_CYCLES = 100_000_000  # ~50 ms at 2 GHz: covers enqueueing the timed calls
 H100_PEAK_GBPS = 3350.0  # HBM3 bandwidth of an H100 SXM (NVIDIA's data sheet)
-H100_PEAK_FP32_TFLOPS = 67.0  # float32 outside the tensor cores
 
 
 def card_line() -> str:

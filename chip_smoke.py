@@ -22,7 +22,7 @@ prints lines; any failure exits non-zero):
      digital app's (728, /12); K2 (prelude form) at (546, /50) and a
      three-part (2500, /8); K3 at NBFM 2 Msps (728, /66), in its channel
      form at the ``nbfm.capture`` cell's shape (57 channels, M = 19,375,
-     random carried phases: one launch, 57 rows) and at the single-stage
+     random carried phases: one launch in the shared form, 57 rows) and at the single-stage
      NBFM 20 Msps (9660, /666); K4 through the streaming call at the AM
      shapes, (6665, /500) and the JSON graph's (546, /50), also on ticks
      that rotate past the L2 cache; R1 (``resample_poly``) at every shape
@@ -328,11 +328,11 @@ def kernel_phase(torch, card, dev) -> dict:
     ph_c = osc.as_phases(rng.integers(0, 2**32, Cc).tolist(), dev)
     Mc = (ext_c.shape[0] - (Tf - 1)) // Df - 1
     fc_plan = fm_fused.fm_fused_plan(Tf, Df, Mc, Cc)
-    fc_blocks = Cc * fm_fused.fm_fused_blocks(Mc, fc_plan)
+    fc_blocks = fm_fused.fm_fused_grid(Tf, Df, Mc, Cc, fc_plan)
     print(f"phase 2 FM-fused channel form at (728, /66), C={Cc}, M={Mc}: {fc_plan}, {fc_blocks} blocks",
           flush=True)
-    check(Mc == 19_375 and fc_plan == fm_fused.FmFusedPlan("phase", fm_fused.PHASE_TILE, Tf),
-          f"the nbfm.capture tick takes the phase-major form over {Cc} channels: M={Mc}, {fc_plan}")
+    check(Mc == 19_375 and fc_plan == fm_fused.FmFusedPlan("shared", fm_fused.PHASE_TILE, Tf),
+          f"the nbfm.capture tick takes the shared form over {Cc} channels: M={Mc}, {fc_plan}")
 
     def channels_kernel():
         return fm_fused.fused_fm_demod(ext_c[Hf:], ftaps, Df, incs_c, ph_c, front.gain, history=ext_c[:Hf])
@@ -340,9 +340,11 @@ def kernel_phase(torch, card, dev) -> dict:
     kernels.reset_launch_counts()
     got_c = channels_kernel()
     torch.cuda.synchronize()
-    counts_c = (fm_fused.fused_fm_demod.launches, fm_fused.fused_fm_demod.channel_rows)
-    check(counts_c == (1, Cc) and got_c.shape == (Cc, Mc),
-          f"the channel form: (launches, channel rows) {counts_c} and {tuple(got_c.shape)}, expected (1, {Cc})")
+    counts_c = (fm_fused.fused_fm_demod.launches, fm_fused.fused_fm_demod.channel_rows,
+                fm_fused.fused_fm_demod.shared_rows)
+    check(counts_c == (1, Cc, Cc) and got_c.shape == (Cc, Mc),
+          f"the channel form: (launches, channel rows, shared rows) {counts_c} and {tuple(got_c.shape)}, "
+          f"expected (1, {Cc}, {Cc})")
     cmp["fm_channels"] = compare(
         torch, card, f"FM-fused channel form T=728 D=66 C={Cc} M={Mc} {fc_plan}",
         channels_kernel,

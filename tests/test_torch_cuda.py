@@ -233,7 +233,7 @@ def test_receiver_on_the_card_matches_cpu(cuda, rng, args, kw, tick, wrapper):
 
 def test_shared_memory_rules_match_the_kernels(cuda):
     """The plans' byte counts (pure Python, used on the CPU) equal what the
-    kernels' C side allocates."""
+    kernels' C side allocates, and FM-fused's grids the ones it launches."""
     from tpusdr_torch.kernels.build import library
 
     lib = library()
@@ -252,11 +252,18 @@ def test_shared_memory_rules_match_the_kernels(cuda):
             for tile in tfm.PROBE_PHASE_TILES:
                 fm = tfm.FmFusedPlan("phase", tile, T)
                 assert lib.tpusdr_fm_fused_smem(T, D, 1, tile, T) == tfm.fm_fused_smem(T, D, fm)
+            for tile in tfm.SHARED_TILES:
+                fm = tfm.FmFusedPlan("shared", tile, T)
+                assert lib.tpusdr_fm_fused_smem(T, D, 2, tile, T) == tfm.fm_fused_smem(T, D, fm)
             for form, tiles in (("taps", tfp.TAP_TILES), ("phase", tfp.PHASE_TILES), ("outputs", tfp.OUTPUT_TILES)):
                 for tile in tiles:
                     for chunk in {46, T} if form != "phase" else {T}:
                         plan = tfp.FirDecimPlan(form, tile, chunk)
                         assert lib.tpusdr_fir_poly_smem(T, D, tfp.FORMS.index(form), tile, chunk) == tfp.fir_decim_smem(T, D, plan)
+    # the shared form's persistent grid is the card's resident blocks, two an SM at the nbfm.capture
+    # shape, as the rule counts them
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tfm.fm_fused_grid(728, 66, 19_375, 57, tfm.fm_fused_plan(728, 66, 19_375, 57)) == 2 * sms
 
 
 def test_long_taps_run_in_chunks(cuda, rng):
@@ -804,6 +811,7 @@ def test_captured_step_equals_eager(cuda, rng, label):
     captured, counts, runner, state = runner_audio(block, ticks, None, device=cuda)
     assert isinstance(runner._step, CapturedStep) and len(runner._step._graphs) == 1
     assert counts == eager_counts == {w.__name__: path.per_tick.get(w.__name__, 0) * len(ticks) for w in kernels.WRAPPERS}
+    assert tfm.fused_fm_demod.shared_rows == 0  # a single channel never takes K3's shared form
     assert captured.shape == eager.shape and np.array_equal(captured, eager)
     assert captured.shape[-1] == sum(len(t) for t in ticks) * block.up // block.down
     assert all(leaf.device == cuda for leaf in torch.utils._pytree.tree_flatten(state)[0])
@@ -1736,21 +1744,31 @@ def test_live_runner_drains_each_block_as_its_tick_ends(cuda):
 MARINE = [25e3 * k for k in range(-28, 29)]
 
 
+def nbfm_channel_taps(dev):
+    """The NBFM channel filter at 2 Msps: 728 taps, cut at 7.5 kHz."""
+    from tpusdr_torch.ops import design
+
+    h = torch.from_numpy(design.lowpass_taps(2e6, 7500.0, 7500.0, -60.0).astype(np.float32)).to(dev)
+    assert h.shape[-1] == 728
+    return h
+
+
 @pytest.mark.parametrize("C", [57, 1])
 def test_k3_channel_axis_matches_plain_and_single_channel_launches(cuda, rng, C):
     """K3's channel form at (728, /66), M = 19,375 (the nbfm.capture tick),
-    [history, x] through the two pointers: one launch for C channels,
-    within 1e-5 * gain of the plain version's channel form, and each row bit
-    for bit the single-channel launch with that channel's increment and
-    carried phase (C = 1: the channel form against today's launch).  The
-    taps are the NBFM channel filter, so that each channel holds one
+    [history, x] through the two pointers: one launch for C channels (57:
+    the shared form, its rows counted in ``shared_rows``; 1: the
+    phase-major form), within 1e-5 * gain of the plain version's channel
+    form, and each row against the single-channel launch with that
+    channel's increment and carried phase: within 1e-5 * gain in the shared
+    form, which folds the mix into the taps, bit for bit where both launches
+    take the same form (C = 1: the channel form against today's launch).
+    The taps are the NBFM channel filter, so that each channel holds one
     station."""
-    from tpusdr_torch.ops import design
-
     T, D, M, gain = 728, 66, 19_375, 0.32
-    assert tfm.fm_fused_plan(T, D, M, C) == ("phase", tfm.PHASE_TILE, T)
-    h = torch.from_numpy(design.lowpass_taps(2e6, 7500.0, 7500.0, -60.0).astype(np.float32)).to(cuda)
-    assert h.shape[-1] == T
+    form = "shared" if C >= tfm.SHARED_MIN_CHANNELS else "phase"
+    assert tfm.fm_fused_plan(T, D, M, C) == (form, tfm.PHASE_TILE, T)
+    h = nbfm_channel_taps(cuda)
     n = (T - 1) + (M + 1) * D
     H = (T - 1) + D
     offsets = MARINE if C == 57 else [100e3]
@@ -1759,15 +1777,120 @@ def test_k3_channel_axis_matches_plain_and_single_channel_launches(cuda, rng, C)
     incs = [osc.freq_to_inc_u32(-f, 2e6) for f in offsets]
     phases = [int(p) for p in rng.integers(0, 2**32, C)]
     incs_t, phases_t = torch.tensor(incs, device=cuda), osc.as_phases(phases, cuda)
-    launches, rows = tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows
+    counters = (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows, tfm.fused_fm_demod.shared_rows)
     got = tfm.fused_fm_demod(z[H:], h, D, incs_t, phases_t, gain, history=z[:H])
-    assert (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows) == (launches + 1, rows + C)
+    shared = C if form == "shared" else 0
+    assert (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows,
+            tfm.fused_fm_demod.shared_rows) == (counters[0] + 1, counters[1] + C, counters[2] + shared)
     assert got.shape == (C, M) and bool(torch.isfinite(got).all())
     ref = tfm.fused_fm_demod_plain(z, h, D, incs_t, phases_t, gain, M)
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * gain)
     for c in range(C):
         one = tfm.fused_fm_demod(z[H:], h, D, incs[c], osc.as_phase(phases[c], cuda), gain, history=z[:H])
-        assert torch.equal(got[c], one), c
+        if form == "shared":
+            np.testing.assert_allclose(got[c].cpu().numpy(), one.cpu().numpy(), rtol=0, atol=1e-5 * gain)
+        else:
+            assert torch.equal(got[c], one), c
+
+
+def shared_launch(x, taps, D, incs, phases, gain, M, history=None):
+    """One K3 launch in the shared form, whatever the rule would pick for
+    C: (C, M) outputs, NaN where the launch wrote nothing."""
+    from tpusdr_torch.kernels.build import library
+
+    out = torch.full((incs.shape[0], M), float("nan"), dtype=torch.float32, device=x.device)
+    plan = tfm.FmFusedPlan("shared", tfm.SHARED_TILE, taps.shape[-1])
+    head, tail = tfm.launch_args(library(), history, x, taps, D, incs, phases, gain, M, plan, out)
+    assert library().tpusdr_fm_fused(*head, *tail) == 0
+    return out
+
+
+@pytest.mark.parametrize("hist", ["tail", None])
+@pytest.mark.parametrize("C,M", [(2, 5_037), (3, 5_037), (57, 19_375), (2, 100), (3, 159), (57, 1)])
+def test_k3_shared_form_matches_plain(cuda, rng, C, M, hist):
+    """K3's shared form at (728, /66) over C stations of the marine raster
+    (2 and 3 below the rule's threshold, launched directly; 57, the
+    nbfm.capture shape), against the plain version's channel form within
+    1e-5 * gain: M ragged against the 159 outputs of a work item, one item
+    a channel or less, [history, x] through the two pointers or x alone,
+    each channel's carried phase at random (the kernel reads none).  x ends
+    in D // 2 NaN samples past the last one a tap reads: they must reach no
+    output."""
+    T, D, gain = 728, 66, 0.32
+    h = nbfm_channel_taps(cuda)
+    n = (T - 1) + (M + 1) * D
+    H = (T - 1) + D if hist == "tail" else 0
+    offsets = MARINE[:: max(1, len(MARINE) // C)][:C]
+    z = sum(fm_tone(rng, n + D // 2, 2e6, f, 5e3) * (1.0 / C) for f in offsets)
+    z = torch.from_numpy(z.astype(np.complex64)).to(cuda)
+    z[n:] = float("nan")
+    incs = torch.tensor([osc.freq_to_inc_u32(-f, 2e6) for f in offsets], device=cuda)
+    phases = osc.as_phases(rng.integers(0, 2**32, C).tolist(), cuda)
+    got = shared_launch(z[H:], h, D, incs, phases, gain, M, history=z[:H] if H else None)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    ref = tfm.fused_fm_demod_plain(z[:n], h, D, incs, phases, gain, M)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * gain)
+
+
+@pytest.mark.parametrize("Q,transition", [(2, 45e3), (9, 10e3), (16, 5.2e3)])
+def test_k3_shared_form_takes_every_tap_count_it_is_built_for(cuda, rng, Q, transition):
+    """The shared form at D = 66 with a channel filter of Q taps a phase (16
+    the most it is built for), its transition set to give them, against the
+    plain version within 1e-5 * gain over 6 stations 225 kHz apart."""
+    from tpusdr_torch.ops import design
+
+    D, M, C, gain = 66, 2_000, 6, 0.32
+    h = torch.from_numpy(design.lowpass_taps(2e6, 7500.0, transition, -60.0).astype(np.float32)).to(cuda)
+    T = h.shape[-1]
+    assert -(-T // D) == Q and tfm.fm_fused_plan(T, D, M, C).form == "shared"
+    n = (T - 1) + (M + 1) * D
+    offsets = MARINE[:: len(MARINE) // C][:C]
+    z = sum(fm_tone(rng, n, 2e6, f, 5e3) * (1.0 / C) for f in offsets)
+    z = torch.from_numpy(z.astype(np.complex64)).to(cuda)
+    incs = torch.tensor([osc.freq_to_inc_u32(-f, 2e6) for f in offsets], device=cuda)
+    phases = osc.as_phases(rng.integers(0, 2**32, C).tolist(), cuda)
+    got = shared_launch(z, h, D, incs, phases, gain, M)
+    ref = tfm.fused_fm_demod_plain(z, h, D, incs, phases, gain, M)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * gain)
+
+
+def test_k3_shared_form_retunes_in_a_captured_launch(cuda, rng):
+    """A CUDA graph holding one K3 launch over the 57 marine channels (the
+    shared form): a retune that writes the increments in place between two
+    replays reaches the second replay's output, which matches the plain
+    version at the new frequencies within 1e-5 * gain; nothing else is
+    updated.  The new increments move each channel up 25 kHz, onto the next
+    station, and the last onto the first (a channel without a station
+    holds noise, whose arg no two orders of float arithmetic agree on).
+    """
+    T, D, M, gain = 728, 66, 19_375, 0.32
+    h = nbfm_channel_taps(cuda)
+    n = (T - 1) + (M + 1) * D
+    z = sum(fm_tone(rng, n, 2e6, f, 5e3) * (1.0 / 57) for f in MARINE)
+    z = torch.from_numpy(z.astype(np.complex64)).to(cuda)
+    incs = torch.tensor([osc.freq_to_inc_u32(-f, 2e6) for f in MARINE], device=cuda)
+    phases = osc.as_phases(rng.integers(0, 2**32, 57).tolist(), cuda)
+    assert tfm.fm_fused_plan(T, D, M, 57).form == "shared"
+    tfm.fused_fm_demod(z, h, D, incs, phases, gain)  # eager first: the kernel's shared-memory opt-in
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        y = tfm.fused_fm_demod(z, h, D, incs, phases, gain)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = y.clone()
+    ref = tfm.fused_fm_demod_plain(z, h, D, incs, phases, gain, M)
+    np.testing.assert_allclose(first.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-5 * gain)
+    retuned = [osc.freq_to_inc_u32(-f, 2e6) for f in MARINE[1:] + MARINE[:1]]
+    incs.copy_(torch.tensor(retuned, dtype=torch.int64))
+    graph.replay()
+    torch.cuda.synchronize()
+    ref2 = tfm.fused_fm_demod_plain(z, h, D, incs, phases, gain, M)
+    np.testing.assert_allclose(y.cpu().numpy(), ref2.cpu().numpy(), rtol=0, atol=1e-5 * gain)
+    assert (y - first).abs().max().item() > 0.01
 
 
 @pytest.mark.parametrize("every,tick,n_ticks", [(4, 8250 * 20, 4), (1, 8250 * 155, 2)])
@@ -1775,9 +1898,10 @@ def test_nbfm_channels_captured_on_the_card_matches_cpu(cuda, rng, every, tick, 
     """The NBFM channels' chain (15 of the marine channels on ticks of
     165,000, and the nbfm.capture cell's 57 on ticks of 1,278,750) through a
     traced CapturedStep, tick by tick against the eager CPU chain: one K3
-    launch and C channel rows a tick, and one resampler launch over C rows,
-    eager, captured or replayed; the traced summary holds the ``frontend``
-    and ``audio`` stages and channel rows over launches = C."""
+    launch and C channel rows a tick, all in K3's shared form, and one
+    resampler launch over C rows, eager, captured or replayed; the traced
+    summary holds the ``frontend`` and ``audio`` stages, channel rows over
+    launches = C and as many shared rows as channel rows."""
     from tpusdr_torch.models import nbfm_channels
     from tpusdr_torch.utils.tracing import Tracer
 
@@ -1799,13 +1923,15 @@ def test_nbfm_channels_captured_on_the_card_matches_cpu(cuda, rng, every, tick, 
             gs, gy = step(gs, torch.from_numpy(blk).to(cuda))
             assert gy.shape == ref[k].shape == (C, tick * 4 // 1000)
             assert err_db(ref[k], gy.cpu().numpy()) <= -60.0
-            assert (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows) == (k + 1, C * (k + 1))
+            assert (tfm.fused_fm_demod.launches, tfm.fused_fm_demod.channel_rows,
+                    tfm.fused_fm_demod.shared_rows) == (k + 1, C * (k + 1), C * (k + 1))
             assert (trp.resample_poly.launches, trp.resample_poly.rows) == (k + 1, C * (k + 1))
     assert step.eager_ticks == 1 and step.captures == 1
     s = tr.summary()
     assert {"frontend", "audio"} <= set(s["stages"])
     assert s["counters"]["launches"]["fused_fm_demod"] == s["counters"]["launches"]["resample_poly"] == n_ticks
     assert s["counters"]["channel_rows"]["fused_fm_demod"] == s["counters"]["rows"]["resample_poly"] == n_ticks * C
+    assert s["counters"]["shared_rows"]["fused_fm_demod"] == s["counters"]["channel_rows"]["fused_fm_demod"]
 
 
 # -- the batched resampler: resample_poly ------------------------------------------------

@@ -412,10 +412,13 @@ def test_tile_rules_fit_every_receiver_stage(monkeypatch):
 
 
 def _fm_fused_smem_c_side(T, D, plan):
-    """csrc/fm_fused.cu, taps_smem_bytes and phase_smem_bytes, written out."""
+    """csrc/fm_fused.cu, taps_smem_bytes, phase_block_bytes and
+    shared_smem_bytes, written out."""
+    Q = -(-T // D)
     if plan.form == "phase":
-        Q = -(-T // D)
         return ((plan.tile + Q - 1) * (D | 1) + 8 * plan.tile) * 8 + D * Q * 4
+    if plan.form == "shared":
+        return (D * Q + 8 * plan.tile + (plan.tile + Q - 1) * (D | 1)) * 8 + D * Q * 4
     return ((plan.tile - 1) * D + plan.chunk + plan.tile) * 8 + plan.chunk * 4
 
 
@@ -433,12 +436,25 @@ def _fm_fused_smem_c_side(T, D, plan):
         (91, 10, 800, ("taps", 8), 115),
         (546, 50, 25_600, ("phase", 160), 162),
         (46, 2, 640_000, ("taps", 64), 10_159),  # D < 8: six of eight warps would have no phase
+        # (M, C): the channel form
+        (728, 66, (19_375, 57), ("shared", 160), 264),  # nbfm.capture: 122 x 57 work items on 264 resident blocks
+        (728, 66, (20_000, tfm.SHARED_MIN_CHANNELS), ("shared", 160), 264),
+        (728, 66, (159, tfm.SHARED_MIN_CHANNELS), ("shared", 160), tfm.SHARED_MIN_CHANNELS),  # an item a block
+        (1100, 66, (19_375, 57), ("phase", 160), 57 * 122),  # 17 taps a phase: more than the shared form holds
+        (66, 66, (19_375, 57), ("phase", 160), 57 * 122),  # a tap a phase: the shared form is built for 2 to 16
+        (728, 66, (20_000, tfm.SHARED_MIN_CHANNELS - 1), ("phase", 160), 126 * (tfm.SHARED_MIN_CHANNELS - 1)),
+        (728, 66, (20_000, 1), ("phase", 160), 126),  # one channel: complex taps would double its FIR
+        (9660, 666, (625, 57), ("taps", 16), 57 * 42),  # the window of 160 filtered samples passes shared memory
+        (46, 2, (640_000, 57), ("taps", 64), 57 * 10_159),  # D < 8
     ],
 )
 def test_fm_fused_plan_choices(T, D, M, want, blocks):
-    plan = tfm.fm_fused_plan(T, D, M)
+    M, C = M if isinstance(M, tuple) else (M, 1)
+    plan = tfm.fm_fused_plan(T, D, M, C)
     assert (plan.form, plan.tile) == want and plan.chunk == T
-    assert tfm.fm_fused_blocks(M, plan) == blocks
+    assert tfm.fm_fused_grid(T, D, M, C, plan) == blocks
+    if C == 1:
+        assert tfm.fm_fused_plan(T, D, M) == plan and tfm.fm_fused_blocks(M, plan) == blocks
     smem = tfm.fm_fused_smem(T, D, plan)
     assert smem == _fm_fused_smem_c_side(T, D, plan) <= tfb.SMEM_LIMIT
     if (T, D, plan.form) == (728, 66, "phase"):
@@ -446,6 +462,9 @@ def test_fm_fused_plan_choices(T, D, M, want, blocks):
         assert tfb.blocks_per_sm(smem) == 2
         seven = plan._replace(tile=224)  # D-FIR's R = 7, built for the timing probe
         assert tfm.fm_fused_smem(T, D, seven) == _fm_fused_smem_c_side(T, D, seven) == 143_464
+    if (T, D, plan.form) == (728, 66, "shared"):
+        assert smem == 66 * 12 * 8 + 8 * 160 * 8 + 171 * 67 * 8 + 66 * 12 * 4 == 111_400
+        assert tfb.blocks_per_sm(smem) == 2
 
 
 def test_tile_rules_chunk_long_taps():
@@ -703,6 +722,160 @@ def test_fm_phase_major_form_matches_plain(rng, T, D, H, R):
     ref = tfm.fused_fm_demod_plain(torch.from_numpy(clean), torch.from_numpy(h), D, inc, phase0, gain, M).numpy()
     assert np.isfinite(got).all()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * gain)
+
+
+def shared_walk(items, grid):
+    """The work items each block of FM-fused's shared form walks, in order
+    (csrc/fm_fused.cu, fm_fused_shared_kernel: block b takes items
+    [items b / grid, items (b+1) / grid)).  Item i is (tile i // groups,
+    the channels of group i % groups)."""
+    return [range(items * b // grid, items * (b + 1) // grid) for b in range(grid)]
+
+
+def turns(ph_u32):
+    """exp(j 2 pi ph / 2^32) as the shared form takes it (csrc/fm_fused.cu,
+    turn): the uint32 phase read as a signed int32, in float32 times
+    2^-31, then sin and cos of pi times that."""
+    x = (np.asarray(ph_u32, np.int64) % (1 << 32)).astype(np.uint32).view(np.int32).astype(np.float32)
+    x = x * np.float32(2.0**-31)
+    return np.exp(1j * np.pi * x.astype(np.float64))
+
+
+def discriminate_rotated(w, rho, gain, dtype):
+    """gain * arg(rho * w[k+1] conj w[k]) in the shared form's order of
+    operations (csrc/fm_fused.cu, the end of fm_fused_shared_kernel), in ``dtype``: the
+    product's parts, the rotation, then + 0 on the real part, so that a
+    zero input gives 0 and not +-pi."""
+    e, b = w[1:], w[:-1]
+    ex, ey, bx, by = (np.asarray(t, dtype) for t in (e.real, e.imag, b.real, b.imag))
+    pr, pi = ex * bx + ey * by, ey * bx - ex * by
+    rx, ry = dtype(rho.real), dtype(rho.imag)
+    re, im = rx * pr - ry * pi, rx * pi + ry * pr
+    return dtype(gain) * np.arctan2(im, re + dtype(0.0))
+
+
+def fm_shared_form(hist, x, taps, D, incs, gain, M, grid, R=tfm.PHASE_R, warps=tfb.KERNEL_WARPS):
+    """The shared form of FM-fused with the kernel's own index arithmetic
+    and schedule (csrc/fm_fused.cu, fm_fused_shared_kernel), in numpy.  The
+    work items, (tile of 32*R filtered samples, channel) in tile-major
+    order, are cut into ``grid`` contiguous runs (``shared_walk``); a block
+    stages the raw window of its item's tile (rows at the odd pitch, zero
+    outside [0, end), never mixed, every other word NaN) only where the
+    tile changes, folds the channel's NCO into complex taps by phase, sums
+    them in the order ``real_phase_sums`` does (fir_common.cuh's
+    phase_sums_whole takes a phase's taps in the same order) and
+    discriminates with the rotation rho.  Returns the (C, M) outputs, the
+    (tile, channel) pairs in the order they ran and each block's count of
+    stagings."""
+    T, C = len(taps), len(incs)
+    s = np.concatenate([hist, x])
+    nv, Q, pitch = 32 * R, -(-T // D), tfb.phase_pitch(D)
+    rows, n_out = nv + Q - 1, nv - 1
+    end = min(len(s), (T - 1) + (M + 1) * D)
+    u = np.arange(D)[:, None] + np.arange(Q)[None, :] * D
+    h_rev = taps[::-1][np.minimum(u, T - 1)]
+    y = np.full((C, M), np.nan, np.float32)
+    ran, stagings = [], []
+    for walk in shared_walk(-(-M // n_out) * C, grid):
+        staged, count = -1, 0
+        for it in walk:
+            tile, c = divmod(it, C)
+            m0 = tile * n_out
+            if tile != staged:
+                win = np.full(rows * pitch, np.nan + 0j, np.complex64)  # a word never staged must never be read
+                i = np.arange(rows * D)
+                g = m0 * D + i
+                win[i + (i // D) * (pitch - D)] = np.where(g < end, s[np.minimum(g, len(s) - 1)], 0)
+                staged, count = tile, count + 1
+            hq = np.where(u < T, h_rev * turns(u * incs[c]), 0).astype(np.complex64)
+            v = real_phase_sums(win, hq, T, D, R, warps)
+            n = min(n_out, M - m0)
+            y[c, m0 : m0 + n] = discriminate_rotated(v[: n + 1], turns(D * incs[c]), gain, np.float32)
+            ran.append((tile, c))
+        stagings.append(count)
+    return y, ran, stagings
+
+
+#: increments either side of 2^31 (and near 0 and 2^32), as uint32
+SHARED_INCS = [(1 << 31) - 12_345, (1 << 31) + 6_789, 3_221_225, (1 << 32) - 2_147_483]
+
+
+@pytest.mark.parametrize("T,D", [(728, 66), (91, 10), (132, 66)])
+def test_shared_form_folds_the_mix_into_the_taps(rng, T, D):
+    """The identity the shared form rests on, in float64 on random data:
+    mixing s by channel c's NCO (phase phase_c + n inc_c mod 2^32), then
+    filtering by h_rev and discriminating, equals filtering s by the folded
+    taps g[u] = h_rev[u] e^{j 2 pi (u inc_c mod 2^32) / 2^32} and
+    discriminating with each product turned by rho = e^{j 2 pi (D inc_c mod
+    2^32) / 2^32}, within 1e-6 * gain: increments either side of 2^31, a
+    carried phase that wraps inside the first tile and one at random; a
+    zero input gives 0, not +-pi."""
+    M, gain = 2 * tfm.SHARED_TILE + 7, 0.8
+    n = (T - 1) + (M + 1) * D
+    h = rng.standard_normal(T) / np.sqrt(T)
+    s = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    k = np.arange(M + 1)[:, None] * D + np.arange(T)[None, :]  # the samples filtered sample k reads
+    for inc in SHARED_INCS:
+        for phase in ((1 << 32) - 3 * inc % (1 << 32) // 2, int(rng.integers(0, 1 << 32))):
+            theta = 2 * np.pi * ((phase + np.arange(n) * inc) % (1 << 32)) / 2**32
+            v = (s * np.exp(1j * theta))[k] @ h[::-1]
+            ref = gain * np.angle(v[1:] * np.conj(v[:-1]))
+            g = h[::-1] * np.exp(2j * np.pi * ((np.arange(T) * inc) % (1 << 32)) / 2**32)
+            rho = np.exp(2j * np.pi * ((D * inc) % (1 << 32)) / 2**32)
+            got = discriminate_rotated(s[k] @ g, rho, gain, np.float64)
+            np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6 * gain)
+        for dtype in (np.float32, np.float64):
+            zero = discriminate_rotated(s[k][:, :0].sum(1), turns(D * inc), gain, dtype)
+            assert zero.shape == (M,) and (zero == 0).all()
+
+
+@pytest.mark.parametrize("items,grid", [(122 * 57, 264), (9, 4), (7, 7), (5, 8), (1, 1)])
+def test_shared_walk_takes_every_item_once(items, grid):
+    """The shared form's walk: contiguous runs of items, one a block, their
+    lengths within one of each other, together every item once in order;
+    at the nbfm.capture shape (122 tiles x 57 channels on 264 blocks) 26 or
+    27 items a block, each over one or two tiles, so at most two stagings."""
+    walks = shared_walk(items, grid)
+    assert len(walks) == grid and [i for w in walks for i in w] == list(range(items))
+    assert max(map(len, walks)) - min(map(len, walks)) <= 1
+    if items == 122 * 57:
+        plan = tfm.fm_fused_plan(728, 66, 19_375, 57)
+        assert 57 * tfm.fm_fused_blocks(19_375, plan) == items and tfm.fm_fused_grid(728, 66, 19_375, 57, plan) == grid
+        assert {len(w) for w in walks} == {26, 27}
+        assert max(len({i // 57 for i in w}) for w in walks) == 2
+
+
+@pytest.mark.parametrize("H", ["tail", 0])
+@pytest.mark.parametrize("T,D,M,C,grid", [(728, 66, 2 * 159 + 41, 3, 4), (91, 10, 159, 2, 1), (132, 66, 200, 5, 3)])
+def test_fm_shared_form_matches_plain(rng, T, D, M, C, grid, H):
+    """The shared form's model over C stations, one a channel, against the
+    plain version's channel form within 1e-5 * gain: ragged tiles, the
+    history through the second pointer or none, x ending in D // 2 NaN
+    samples past the last one a tap reads (never staged), each channel's
+    carried phase at random (the kernel reads none), increments either side
+    of 2^31.  Every (tile, channel) pair runs once, and a block stages a
+    window only where its tile changes."""
+    fs, gain = 2e6, 0.8
+    offsets = [-700e3, 450e3, -25e3, 100e3, 975e3][:C]
+    incs = [int(josc.freq_to_inc_u32(-f, fs)) for f in offsets]
+    assert incs[0] < 1 << 31 < incs[1]
+    h = np.hamming(T).astype(np.float32)
+    h /= h.sum()
+    H = (T - 1) + D if H == "tail" else 0
+    n = (T - 1) + (M + 1) * D
+    z = sum(fm_tone(rng, n + D // 2, fs, f, 1e3) for f in offsets) / C
+    clean = z[:n].copy()
+    z[n:] = np.nan
+    got, ran, stagings = fm_shared_form(z[:H], z[H:], h, D, incs, gain, M, grid)
+    phases = tosc.as_phases(rng.integers(0, 1 << 32, C).tolist())
+    ref = tfm.fused_fm_demod_plain(torch.from_numpy(clean), torch.from_numpy(h), D, torch.tensor(incs), phases,
+                                   gain, M).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * gain)
+    tiles = -(-M // (tfm.SHARED_TILE - 1))
+    assert sorted(ran) == [(t, c) for t in range(tiles) for c in range(C)]
+    walks = shared_walk(tiles * C, grid)
+    assert stagings == [len({i // C for i in w}) for w in walks]
 
 
 @pytest.mark.parametrize("H", ["tail", 0, 5])

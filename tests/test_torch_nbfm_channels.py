@@ -235,13 +235,19 @@ def test_a_scalar_frequency_keeps_the_single_stream_block():
 
 
 def test_the_plan_counts_the_channel_grid():
-    """At C = 1 the rule is today's; C x blocks decides whether a launch
-    fills the card."""
+    """At C = 1 the rule is today's; below the shared form's threshold C x
+    blocks decides whether a phase-major launch fills the card; from it on
+    the channels share their windows, whatever M."""
     assert tfm.fm_fused_plan(728, 66, 19375, 1) == tfm.fm_fused_plan(728, 66, 19375)
-    assert tfm.fm_fused_plan(728, 66, 19375, 57) == tfm.FmFusedPlan("phase", tfm.PHASE_TILE, 728)
-    M = 2513  # 16 phase-major blocks: too few for one channel, enough for 57
+    assert tfm.fm_fused_plan(728, 66, 19375, 57) == tfm.FmFusedPlan("shared", tfm.SHARED_TILE, 728)
+    assert tfm.SHARED_MIN_CHANNELS > 2
+    M = 10_000  # 63 phase-major blocks: too few for one channel, enough for two
     assert tfm.fm_fused_plan(728, 66, M, 1).form == "taps"
-    assert tfm.fm_fused_plan(728, 66, M, 57).form == "phase"
+    assert tfm.fm_fused_plan(728, 66, M, 2).form == "phase"
+    M = 2513  # 16 phase-major blocks
+    assert tfm.fm_fused_plan(728, 66, M, 1).form == "taps"
+    assert tfm.fm_fused_plan(728, 66, M, tfm.SHARED_MIN_CHANNELS).form == "shared"
+    assert tfm.fm_fused_plan(728, 66, M, 57).form == "shared"
 
 
 def test_nco_helpers_take_c_increments():

@@ -749,6 +749,51 @@ def test_plan_probe_inputs_sit_in_the_passband(kernel, cplx):
         assert 0.8 < np.abs(y[20:]).max() < 1.0
 
 
+@pytest.mark.parametrize("tile,C,want", [
+    (160, 57, {"blocks": 264, "smem": 111_400, "blocks_per_sm": 2, "is_rule_plan": True}),
+    (160, 1, {"blocks": 122, "smem": 111_400, "is_rule_plan": False}),
+])
+def test_plan_probe_describes_the_shared_form(tile, C, want):
+    """FM-fused's shared form at the nbfm.capture shape: its blocks are the
+    persistent grid (two an SM on 132 SMs, or one a work item where there
+    are fewer), the rule's plan only from ``SHARED_MIN_CHANNELS`` on."""
+    plan = plan_probe.make_plan("fm_fused", 728, 66, False, "shared", tile, None)
+    got = plan_probe.describe("fm_fused", 728, 66, 19_375, False, plan, C)
+    assert (got["form"], got["tile"], got["chunk"], got["C"]) == ("shared", tile, 728, C)
+    assert {k: got[k] for k in want} == want
+
+
+def test_plan_probe_channel_signal_holds_a_station_a_channel():
+    """With --C the probe's signal holds a station in every channel, so
+    that each row of the value check means something: at (728, /66) each
+    channel decodes its station's 1 kHz tone at the amplitude of the
+    single-station signal, the neighbours 25 kHz away filtered out."""
+    from tpusdr_torch.kernels import fm_fused as tfm
+    from tpusdr_torch.ops import osc
+
+    T, D, M, C = 728, 66, 300, 3
+    _, taps = plan_probe.probe_inputs("fm_fused", T, D, 8, False)
+    z = torch.from_numpy(plan_probe.channel_signal((T - 1) + (M + 1) * D, C))
+    incs = torch.tensor([osc.freq_to_inc_u32(-(plan_probe.F_OFF + c * plan_probe.CHANNEL_STEP), plan_probe.FS)
+                         for c in range(C)])
+    y = tfm.fused_fm_demod_plain(z, torch.from_numpy(taps), D, incs, osc.as_phases([1, 2, 3]), plan_probe.GAIN, M)
+    assert y.shape == (C, M)
+    t = np.arange(50, M) * D / plan_probe.FS
+    basis = np.stack([np.sin(2 * np.pi * 1e3 * t), np.cos(2 * np.pi * 1e3 * t)], 1)
+    amp = plan_probe.GAIN * 2 * np.pi * 1e3 * D / plan_probe.FS  # modulation index 1: peak deviation 1 kHz
+    for row in y.numpy():
+        fit, *_ = np.linalg.lstsq(basis, row[50:], rcond=None)
+        rest = row[50:] - basis @ fit
+        assert abs(np.hypot(*fit) - amp) < 0.1 * amp and np.sqrt((rest**2).mean()) < 0.1 * amp
+
+
+def test_plan_probe_takes_channels_for_fm_fused_alone():
+    with pytest.raises(ValueError, match="FM-fused"):
+        plan_probe.probe("decim_fir", 546, 50, 1000, False, [("phase", 224)], C=2)
+    with pytest.raises(ValueError, match="--part"):
+        plan_probe.probe("fm_fused", 728, 66, 1000, False, [("shared", 160)], part="fill+sums")
+
+
 def test_plan_probe_names_what_the_kernels_are_not_built_for():
     assert "built for tiles" in plan_probe.make_plan("fm_fused", 728, 66, False, "taps", 48, None)
     assert "built for tiles" in plan_probe.make_plan("decim_fir", 546, 50, True, "phase", 160, None)
@@ -756,6 +801,11 @@ def test_plan_probe_names_what_the_kernels_are_not_built_for():
     assert "built for tiles" in plan_probe.make_plan("fir_decim", 868, 250, False, "taps", 12, None)
     assert "built for tiles" in plan_probe.make_plan("fir_decim", 46, 2, False, "outputs", 16, None)
     assert "has no outputs form" in plan_probe.make_plan("fm_fused", 728, 66, False, "outputs", 32, None)
+    assert "built for tiles" in plan_probe.make_plan("fm_fused", 728, 66, False, "shared", 64, None)
+    assert "has no shared form" in plan_probe.make_plan("fir_decim", 546, 50, False, "shared", 160, None)
+    assert "shared memory" in plan_probe.make_plan("fm_fused", 9660, 666, False, "shared", 160, None)
+    assert "taps a phase" in plan_probe.make_plan("fm_fused", 1100, 66, False, "shared", 160, None)
+    assert "taps a phase" in plan_probe.make_plan("fm_fused", 66, 66, False, "shared", 160, None)
     assert "shared memory" in plan_probe.make_plan("fir_decim", 868, 250, False, "phase", 160, None)
     assert "shared memory" in plan_probe.make_plan("fm_fused", 9660, 666, False, "phase", 224, None)
     assert "shared memory" in plan_probe.make_plan("fm_fused", 9660, 666, False, "taps", 32, 9660)

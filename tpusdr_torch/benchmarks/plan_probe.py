@@ -4,10 +4,11 @@ D-FIR (``kernels.fir_banded``, csrc/decim_fir.cu), FM-fused
 (``kernels.fm_fused``, csrc/fm_fused.cu) and K4 (``kernels.fir_poly``,
 csrc/fir_poly.cu) each cut a launch by a plan: the inner loop (``taps``:
 lanes across taps; ``phase``: phase-major; K4 also ``outputs``: lanes
-across outputs), the tile (outputs a block,
-filtered samples a block for FM-fused) and the tap chunk.
+across outputs; FM-fused also ``shared``: one staged window for every
+channel, the mix folded into complex taps), the tile (outputs a block,
+filtered samples a block or a work item for FM-fused) and the tap chunk.
 ``decim_fir_plan``, ``fm_fused_plan`` and ``fir_decim_plan`` pick one from
-(T, D, M).  This probe launches any plan the kernels are built for through
+(T, D, M), FM-fused's from (T, D, M, C).  This probe launches any plan the kernels are built for through
 the C entry points, so that the rules' thresholds can be read again on the
 card:
 
@@ -32,7 +33,14 @@ block does not fit shared memory, prints a line with ``skipped``.
     more) to pass the cache, so every launch reads device memory.
   * FM-fused only: ``--part fill`` and ``--part fill+mix`` cut the launch
     after the window fill or after the mix (the kernel's probe-only entry
-    point; no receiver path reaches it), so the parts can be timed apart.
+    point; no receiver path reaches it), so the parts can be timed apart;
+    in the shared form ``--part fill+taps`` cuts it after the fill and each
+    work item's taps.  ``--C`` channels (default 1) launch the channel
+    form over C stations every 25 kHz from F_OFF on, each channel's carried
+    phase at random: the shared form's rule reads C.
+
+    python -m tpusdr_torch.benchmarks.plan_probe --kernel fm_fused \\
+        --T 728 --D 66 --M 19375 --C 57 --form shared phase --tile 160
 
 ``--device cpu`` is refused: a plan means nothing without the card.
 """
@@ -58,16 +66,17 @@ PHASE_TILES = {"decim_fir": (fir_banded.PHASE_TILE,), "fm_fused": fm_fused.PROBE
 # tiles of the forms with a contiguous window, by kernel and form
 WINDOW_TILES = {("fir_decim", "taps"): fir_poly.TAP_TILES, ("fir_decim", "outputs"): fir_poly.OUTPUT_TILES}
 PLANS = {"decim_fir": fir_banded.DecimFirPlan, "fm_fused": fm_fused.FmFusedPlan, "fir_decim": fir_poly.FirDecimPlan}
-PARTS = ("all", "fill", "fill+mix")  # by their index on the C side
+PARTS = {"all": 0, "fill": 1, "fill+mix": 2, "fill+taps": 2}  # by their code on the C side
 L2_BYTES = 50 << 20  # an H100's L2 cache
 FS, F_OFF, GAIN = 2e6, 100e3, 0.32  # the probe's signal (a tone at +F_OFF) and FM gain
+CHANNEL_STEP = 25e3  # the channel form's raster: channel c at F_OFF + c * CHANNEL_STEP
 VALUE_TOL = 1e-5  # kernel against plain: of peak (D-FIR), times the gain (FM-fused)
 
 
-def rule_plan(kernel: str, T: int, D: int, M: int, complex_taps: bool):
+def rule_plan(kernel: str, T: int, D: int, M: int, complex_taps: bool, C: int = 1):
     """The plan the kernel's own rule picks."""
     if kernel == "fm_fused":
-        return fm_fused.fm_fused_plan(T, D, M)
+        return fm_fused.fm_fused_plan(T, D, M, C)
     if kernel == "fir_decim":
         return fir_poly.fir_decim_plan(T, D, M)
     return fir_banded.decim_fir_plan(T, D, complex_taps, M)
@@ -77,7 +86,15 @@ def make_plan(kernel: str, T: int, D: int, complex_taps: bool, form: str, tile: 
     """The plan (form, tile, chunk) of ``kernel``, or a string that says why
     there is none.  ``chunk`` None: all T taps in one pass."""
     cls = PLANS[kernel]
-    if form == "phase":
+    if (kernel, form) == ("fm_fused", "shared"):
+        if tile not in fm_fused.SHARED_TILES:
+            return f"the shared form is built for tiles {fm_fused.SHARED_TILES}"
+        if D < 2:
+            return "the shared form needs D >= 2"
+        if not fm_fused.SHARED_MIN_Q <= cdiv(T, D) <= fm_fused.SHARED_MAX_Q:
+            return f"the shared form is built for {fm_fused.SHARED_MIN_Q} to {fm_fused.SHARED_MAX_Q} taps a phase"
+        plan = cls("shared", tile, T)
+    elif form == "phase":
         if tile not in PHASE_TILES[kernel]:
             return f"the phase-major form is built for tiles {PHASE_TILES[kernel]}"
         if D < 2:
@@ -106,14 +123,15 @@ def plan_smem(kernel: str, T: int, D: int, complex_taps: bool, plan) -> int:
     return fir_banded.decim_fir_smem(T, D, complex_taps, plan)
 
 
-def describe(kernel: str, T: int, D: int, M: int, complex_taps: bool, plan) -> dict:
-    """What a plan means for the card, from shapes alone."""
+def describe(kernel: str, T: int, D: int, M: int, complex_taps: bool, plan, C: int = 1) -> dict:
+    """What a plan means for the card, from shapes alone (``blocks``: the
+    grid over the C channels)."""
     smem = plan_smem(kernel, T, D, complex_taps, plan)
-    blocks = fm_fused.fm_fused_blocks(M, plan) if kernel == "fm_fused" else cdiv(M, plan.tile)
+    blocks = fm_fused.fm_fused_grid(T, D, M, C, plan) if kernel == "fm_fused" else cdiv(M, plan.tile)
     return {
-        "form": plan.form, "tile": plan.tile, "chunk": plan.chunk, "blocks": blocks, "smem": smem,
+        "form": plan.form, "tile": plan.tile, "chunk": plan.chunk, "C": C, "blocks": blocks, "smem": smem,
         "blocks_per_sm": fir_banded.blocks_per_sm(smem),
-        "is_rule_plan": tuple(plan) == tuple(rule_plan(kernel, T, D, M, complex_taps)),
+        "is_rule_plan": tuple(plan) == tuple(rule_plan(kernel, T, D, M, complex_taps, C)),
     }
 
 
@@ -139,10 +157,23 @@ def probe_inputs(kernel: str, T: int, D: int, n: int, complex_taps: bool, seed: 
     return signal, taps
 
 
+def channel_signal(n: int, C: int, seed: int = 0) -> np.ndarray:
+    """C stations (``probe_inputs``' tone) at F_OFF + c * CHANNEL_STEP, each
+    of amplitude 1 / C, n samples."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n) / FS
+    z = np.zeros(n, np.complex128)
+    for c in range(C):
+        ph = 2 * np.pi * (F_OFF + c * CHANNEL_STEP) * t + np.sin(2 * np.pi * 1e3 * t + rng.uniform(0, 2 * np.pi))
+        z += np.exp(1j * ph) / C
+    return (0.9 * z + 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+
+
 def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk: int | None = None,
           input_mode: str = "fixed", part: str = "all", reps: int = 20, seed: int = 0,
-          device="cuda", emit=None) -> list[dict]:
-    """Time each (form, tile) of ``pairs``; returns (and emits) the lines."""
+          device="cuda", emit=None, C: int = 1) -> list[dict]:
+    """Time each (form, tile) of ``pairs``; returns (and emits) the lines.
+    ``C`` > 1: FM-fused's channel form over ``channel_signal``'s stations."""
     from tpusdr_torch.kernels.build import library
 
     device = torch.device(device)
@@ -150,21 +181,29 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
         raise ValueError("plan_probe needs a CUDA device: a plan means nothing without the card")
     if kernel != "decim_fir" and complex_taps:
         raise ValueError(f"{kernel} takes real taps")
-    if kernel != "fm_fused" and part != "all":
-        raise ValueError("--part is FM-fused's")
+    if kernel != "fm_fused" and (part != "all" or C != 1):
+        raise ValueError("--part and --C are FM-fused's")
+    if part not in PARTS:
+        raise ValueError(f"--part is one of {tuple(PARTS)}")
     lib = library()
     card = card_line()
     H = (T - 1) + (D if kernel == "fm_fused" else 0)
     tick = M * D  # [history, tick] is (T-1) + M*D samples, and D more for FM-fused's M + 1 filtered samples
     n_unique = 1 if input_mode == "fixed" else max(8, cdiv(3 * L2_BYTES // 2, tick * 8))
     signal, taps = probe_inputs(kernel, T, D, H + tick, complex_taps, seed)
+    if C > 1:
+        signal = channel_signal(H + tick, C, seed)
     first = torch.from_numpy(signal).to(device)
     xs = first[H:].repeat(n_unique, 1)
     hists = [first[:H]] + [xs[k - 1][tick - H:] if tick >= H else first[:H] for k in range(1, n_unique)]
     taps = torch.from_numpy(taps).to(device)
     inc, ph0 = osc.freq_to_inc_u32(-F_OFF, FS), osc.init_phase(0.3, device)  # read through the pointer
+    if C > 1:
+        inc = torch.tensor([osc.freq_to_inc_u32(-(F_OFF + c * CHANNEL_STEP), FS) for c in range(C)],
+                           dtype=torch.int64, device=device)
+        ph0 = osc.as_phases(np.random.default_rng(seed).integers(0, 2**32, C).tolist(), device)
     if kernel == "fm_fused":
-        out = torch.empty(M, dtype=torch.float32, device=device)
+        out = torch.empty(M if C == 1 else (C, M), dtype=torch.float32, device=device)
         ref = fm_fused.fused_fm_demod_plain(xs[0], taps, D, inc, ph0, GAIN, M, history=hists[0])
         tol = VALUE_TOL * GAIN
     elif kernel == "fir_decim":
@@ -175,17 +214,19 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
         out = torch.empty(M, dtype=torch.complex64, device=device)
         ref = fir_banded.decim_fir_plain(hists[0], xs[0], taps, D, 0, M)
         tol = VALUE_TOL * ref.abs().max().item()
-    rule = rule_plan(kernel, T, D, M, complex_taps)
+    rule = rule_plan(kernel, T, D, M, complex_taps, C)
     lines = []
     for form, tile in pairs:
         line = {"kernel": kernel, "T": T, "D": D, "M": M, "tick": tick, "complex_taps": complex_taps,
                 "input": input_mode, "n_unique": n_unique, "part": part, "reps": reps,
                 "rule_plan": list(rule), "card": card}
         plan = make_plan(kernel, T, D, complex_taps, form, tile, chunk)
+        if not isinstance(plan, str) and part.startswith("fill+") and (part == "fill+taps") != (form == "shared"):
+            plan = f"--part {part} is not a part of the {form} form"
         if isinstance(plan, str):
-            line.update(form=form, tile=tile, skipped=plan)
+            line.update(form=form, tile=tile, C=C, skipped=plan)
         else:
-            line.update(describe(kernel, T, D, M, complex_taps, plan))
+            line.update(describe(kernel, T, D, M, complex_taps, plan, C))
             turn = [0]
 
             def launch(plan=plan):
@@ -195,7 +236,7 @@ def probe(kernel: str, T: int, D: int, M: int, complex_taps: bool, pairs, chunk:
                     if part == "all":
                         err = lib.tpusdr_fm_fused(*head, *tail)
                     else:
-                        err = lib.tpusdr_fm_fused_probe(*head, PARTS.index(part), *tail)
+                        err = lib.tpusdr_fm_fused_probe(*head, PARTS[part], *tail)
                 elif kernel == "fir_decim":
                     head, tail = fir_poly.launch_args(lib, hists[k], xs[k], taps, D, M, plan, out)
                     err = lib.tpusdr_fir_poly(*head, *tail)
@@ -230,15 +271,16 @@ def main(argv=None) -> int:
     size.add_argument("--M", type=int, help="outputs of the launch")
     size.add_argument("--tick", type=int, help="input samples of the tick (M = tick // D)")
     ap.add_argument("--complex-taps", action="store_true", help="D-FIR with complex taps")
-    ap.add_argument("--form", nargs="+", default=["rule"], choices=("rule",) + fir_poly.FORMS,
+    ap.add_argument("--form", nargs="+", default=["rule"], choices=("rule", "shared") + fir_poly.FORMS,
                     help="inner loops to time; 'rule' (default) times the rule's own plan")
     ap.add_argument("--tile", type=int, nargs="+", default=[],
                     help="tiles to time with each form (taps: 64 32 16 8, for fir_decim any multiple of 8 "
-                         "up to 64; phase: 224, and 160 for fm_fused and fir_decim; fir_decim's outputs: "
-                         "256 128 64 32)")
+                         "up to 64; phase: 224, and 160 for fm_fused and fir_decim; fm_fused's shared: 160; "
+                         "fir_decim's outputs: 256 128 64 32)")
     ap.add_argument("--chunk", type=int, default=None, help="taps a pass (default: all that fit)")
     ap.add_argument("--input", default="fixed", choices=("fixed", "rotate"))
-    ap.add_argument("--part", default="all", choices=PARTS, help="FM-fused: cut the launch after a part")
+    ap.add_argument("--part", default="all", choices=tuple(PARTS), help="FM-fused: cut the launch after a part")
+    ap.add_argument("--C", type=int, default=1, help="FM-fused: channels of the launch (default 1)")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -250,7 +292,9 @@ def main(argv=None) -> int:
     M = args.M if args.M is not None else args.tick // args.D
     if M < 1:
         ap.error("the launch has no output")
-    rule = rule_plan(args.kernel, args.T, args.D, M, args.complex_taps)
+    if args.C < 1:
+        ap.error("--C counts channels: 1 or more")
+    rule = rule_plan(args.kernel, args.T, args.D, M, args.complex_taps, args.C)
     pairs = []
     for form in args.form:
         if form == "rule":
@@ -262,7 +306,7 @@ def main(argv=None) -> int:
     try:
         lines = probe(args.kernel, args.T, args.D, M, args.complex_taps, pairs, args.chunk, args.input,
                       args.part, args.reps, args.seed, device,
-                      emit=lambda line: print(json.dumps(line), flush=True))
+                      emit=lambda line: print(json.dumps(line), flush=True), C=args.C)
     except ValueError as e:
         ap.error(str(e))
     return 0 if all(line.get("ok", True) for line in lines) else 1

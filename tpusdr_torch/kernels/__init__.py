@@ -19,8 +19,9 @@
 
 Each wrapper counts its launches in ``<wrapper>.launches``; the FM-fused
 wrapper also counts the channel rows its launches write, in
-``fused_fm_demod.channel_rows``, and the resampler the rows it resamples,
-in ``resample_poly.rows``.
+``fused_fm_demod.channel_rows``, and those of them written in its shared
+form, in ``fused_fm_demod.shared_rows``, and the resampler the rows it
+resamples, in ``resample_poly.rows``.
 """
 
 from tpusdr_torch.kernels import copy_floor as _copy_floor  # the modules keep their names here
@@ -36,7 +37,7 @@ WRAPPERS = (
 )
 
 
-COUNTERS = ("launches", "channel_rows", "rows")  # what a wrapper may count
+COUNTERS = ("launches", "channel_rows", "shared_rows", "rows")  # what a wrapper may count
 
 
 def counts() -> dict:

@@ -135,7 +135,7 @@ struct PhaseRest<R, 0, Tap> {
                                              const Tap*, const float2*, int) {}
 };
 
-// ---- the phase-major form with real taps (fm_fused.cu, fir_poly.cu) ----------
+// ---- the phase-major form with a phase's own tap count (fm_fused.cu, fir_poly.cu) ----
 //
 // A block owns 32 R consecutive sums.  Its window is tile + Q - 1 rows of D
 // samples at the odd pitch D | 1 (Q = ceil(T/D)), then the warps' partial
@@ -209,6 +209,49 @@ __device__ __forceinline__ void phase_sums(float2 (&acc)[R], const float2* win, 
   }
 }
 
+// One phase's Q taps over a lane's R sums (phase_sums_whole): the lane's
+// R + Q - 1 rows of the phase in registers first, then each tap meets R of
+// them.
+template <int R, int Q>
+__device__ __forceinline__ void phase_column(float2 (&acc)[R], const float2* sp, const float2* hp,
+                                             int pitch) {
+  float2 w[R + Q - 1];
+#pragma unroll
+  for (int j = 0; j < R + Q - 1; ++j) w[j] = sp[j * pitch];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const float2 h = hp[q];
+#pragma unroll
+    for (int r = 0; r < R; ++r) mac(acc[r], h, w[q + r]);
+  }
+}
+
+// The same sums with complex taps and a lane's whole column of a phase in
+// registers (FM-fused's form 2), so a phase waits on its loads once, where
+// phase_sums waits on each group's.  Q = ceil(T/D) >= 2 is built in: the
+// phases p < T - (Q-1) D take Q taps, the rest Q - 1.
+template <int R, int Q>
+__device__ __forceinline__ void phase_sums_whole(float2 (&acc)[R], const float2* win,
+                                                 const float2* hq, int T, int D, int pitch) {
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = make_float2(0.f, 0.f);
+  const float2* lane_rows = win + lane * R * pitch;
+  const int full = T - (Q - 1) * D;
+  for (int p = warp; p < D; p += kWarps) {
+    if (p < full)
+      phase_column<R, Q>(acc, lane_rows + p, hq + p * Q, pitch);
+    else
+      phase_column<R, Q - 1>(acc, lane_rows + p, hq + p * Q, pitch);
+  }
+}
+
+// Where add_phase_sums reads sum j of a block of R sums a lane: red[at] and
+// the other warps' rows at the same place, by j's thread alone, so that
+// store may write the sum back there.
+__host__ __device__ constexpr int phase_sum_at(int R, int j) { return (j % R) * kPhaseLanes + j / R; }
+
 // Add the warps' partial sums through red; store(j, sum) takes sum j of the
 // block, from thread j % 256.  Every warp is past its last read of the
 // window when store runs.
@@ -221,7 +264,7 @@ __device__ __forceinline__ void add_phase_sums(const float2 (&acc)[R], float2* r
   for (int r = 0; r < R; ++r) red[(warp * R + r) * kPhaseLanes + lane] = acc[r];
   __syncthreads();
   for (int j = threadIdx.x; j < kTile; j += kThreads) {
-    const int at = (j % R) * kPhaseLanes + j / R;
+    const int at = phase_sum_at(R, j);
     float2 sum = red[at];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) {

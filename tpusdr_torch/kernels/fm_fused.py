@@ -11,18 +11,19 @@ the kernel; a CPU tensor takes the plain version, the torch mix ->
 
 A launch may also demodulate C channels of the same samples: the NCO
 increments and carried phases are then C-element int64 tensors on the
-device, read by the kernel when it runs, the output is (C, M), and the
-channels are a second grid axis of the one launch.  ``launches`` counts
-launches and ``channel_rows`` the channel rows they write.
+device, read by the kernel when it runs, and the output is (C, M), in one
+launch.  ``launches`` counts launches, ``channel_rows`` the channel rows
+they write and ``shared_rows`` those of them written in the shared form.
 
 ``fm_fused_plan`` is the card's shape rule: from (T, D, M, C) it picks the
-kernel's inner loop (phase-major with register reuse for a long tick at a
-moderate D, lanes across taps else), the filtered samples a block (a block
-of n owns n - 1 outputs and recomputes one overlap sample) and the tap
-chunk, so that one block's shared
-memory stays within an H100's 232,448 bytes for every shape the receivers
-build and the grid (C x blocks) covers the card's 132 SMs where M and C
-allow it.
+kernel's inner loop (over many channels the shared form, which stages each
+window once for every channel and folds each channel's mix into its taps;
+else phase-major with register reuse for a long tick at a moderate D,
+lanes across taps else), the filtered samples a block (a block of n owns
+n - 1 outputs and recomputes one overlap sample) and the tap chunk, so
+that one block's shared memory stays within an H100's 232,448 bytes for
+every shape the receivers build and the grid covers the card's 132 SMs
+where M and C allow it.
 """
 
 from __future__ import annotations
@@ -34,7 +35,6 @@ import torch
 
 from tpusdr_torch.kernels.dispatch import check_launch, launch_target, on_cuda
 from tpusdr_torch.kernels.fir_banded import (
-    FORMS,
     KERNEL_WARPS,
     MIN_BLOCKS,
     PHASE_MIN_BLOCKS,
@@ -44,6 +44,7 @@ from tpusdr_torch.kernels.fir_banded import (
     DecimFirPlan,
     blocks_per_sm,
     decim_fir_smem,
+    phase_pitch,
     tap_chunk,
 )
 from tpusdr_torch.utils.numerics import cdiv
@@ -52,13 +53,19 @@ from tpusdr_torch.utils.numerics import cdiv
 PHASE_R = 5  # filtered samples one thread owns in the phase-major form
 PHASE_TILE = 32 * PHASE_R  # its filtered samples per block: lanes across them
 PROBE_PHASE_TILES = (224, 160)  # what the kernel is built for: R = 7 (for the timing probe) and 5
+SHARED_TILE = PHASE_TILE  # the shared form's filtered samples a work item (R = 5)
+SHARED_TILES = (SHARED_TILE,)  # what it is built for
+SHARED_MIN_Q, SHARED_MAX_Q = 2, 16  # taps a phase, ceil(T / D), it is built for
 MAX_CHANNELS = 65535  # the grid's second axis
+SHARED_MIN_CHANNELS = 6  # from here on the shared form wins (PERF.md: plan_probe at (728, /66))
+FORMS = ("taps", "phase", "shared")  # the kernel's inner loops, by their index on the C side
 
 
 class FmFusedPlan(NamedTuple):
-    """How one FM-fused launch is cut: the kernel's inner loop
-    (``fir_banded.FORMS``), ``tile`` filtered samples a block (tile - 1
-    outputs), ``chunk`` taps a pass (T unless shared memory forces less)."""
+    """How one FM-fused launch is cut: the kernel's inner loop (``FORMS``),
+    ``tile`` filtered samples a block or, in the shared form, a work item
+    (tile - 1 outputs), ``chunk`` taps a pass (T unless shared memory
+    forces less)."""
 
     form: str
     tile: int
@@ -67,26 +74,51 @@ class FmFusedPlan(NamedTuple):
 
 def fm_fused_smem(T: int, D: int, plan: FmFusedPlan) -> int:
     """Shared memory of one FM-fused block (csrc/fm_fused.cu
-    taps_smem_bytes and phase_smem_bytes).  Form "taps": the mixed window
-    of ``tile`` filtered samples over ``chunk`` taps, the filtered samples,
-    the chunk's taps.  Form "phase": D-FIR's phase-major layout with real
-    taps; the filtered samples land where the window was."""
+    taps_smem_bytes, phase_block_bytes and shared_smem_bytes).  Form
+    "taps": the mixed window of ``tile`` filtered samples over ``chunk``
+    taps, the filtered samples, the chunk's taps.  Form "phase": D-FIR's
+    phase-major layout with real taps; the filtered samples land where the
+    window was.  Form "shared": the work item's complex taps by phase, the
+    partial sums (added in place), the real taps by phase and the window of
+    the phase-major form."""
     if plan.form == "phase":
         return decim_fir_smem(T, D, False, DecimFirPlan(*plan))
+    if plan.form == "shared":
+        Q = cdiv(T, D)
+        return (D * Q + KERNEL_WARPS * plan.tile + (plan.tile + Q - 1) * phase_pitch(D)) * 8 + D * Q * 4
     return ((plan.tile - 1) * D + plan.chunk + plan.tile) * 8 + plan.chunk * 4
 
 
 def fm_fused_blocks(M: int, plan: FmFusedPlan) -> int:
-    """Blocks of a launch of M outputs: a block owns tile - 1 of them."""
+    """Blocks (tiles, in the shared form) of one channel's M outputs: a
+    block owns tile - 1 of them."""
     return cdiv(M, plan.tile - 1)
+
+
+def fm_fused_grid(T: int, D: int, M: int, C: int, plan: FmFusedPlan) -> int:
+    """Blocks of a launch over C channels: C x ``fm_fused_blocks``, a block
+    a (tile, channel) pair; in the shared form, where those pairs are work
+    items, as many blocks as the card holds at once (``blocks_per_sm`` on
+    ``SM_COUNT`` SMs), or fewer where there are fewer items.  A launch
+    takes this grid from the plan (``launch_args``)."""
+    items = C * fm_fused_blocks(M, plan)
+    if plan.form != "shared":
+        return items
+    return min(items, SM_COUNT * max(1, blocks_per_sm(fm_fused_smem(T, D, plan))))
 
 
 def fm_fused_plan(T: int, D: int, M: int, C: int = 1) -> FmFusedPlan:
     """The plan of an FM-fused launch of M outputs in each of C channels;
-    the grid is C times ``fm_fused_blocks``, and every count of blocks
-    below is the grid's.
+    every count of blocks below is the grid's (``fm_fused_grid``).
 
-    The phase-major form where its 160-sample blocks fit shared memory,
+    The shared form from ``SHARED_MIN_CHANNELS`` channels on, where its
+    window and complex taps fit, every warp has a phase and a phase has
+    ``SHARED_MIN_Q`` to ``SHARED_MAX_Q`` taps: C channels
+    reading one window cost one fill and no mix, where the other forms
+    stage and mix it once a channel; complex taps double a channel's FIR,
+    so a few channels, which share little, keep the forms below.
+
+    Else the phase-major form where its 160-sample blocks fit shared memory,
     every warp has a phase (D >= 8) and the grid covers at least
     ``PHASE_MIN_BLOCKS`` SMs.  A launch takes as long as its longest block,
     so 5 filtered samples a lane beat D-FIR's 7 here: the NBFM tick is 126
@@ -104,6 +136,10 @@ def fm_fused_plan(T: int, D: int, M: int, C: int = 1) -> FmFusedPlan:
     def grid(plan):
         return C * fm_fused_blocks(M, plan)
 
+    shared = FmFusedPlan("shared", SHARED_TILE, T)
+    if (C >= SHARED_MIN_CHANNELS and D >= KERNEL_WARPS and SHARED_MIN_Q <= cdiv(T, D) <= SHARED_MAX_Q
+            and fm_fused_smem(T, D, shared) <= SMEM_LIMIT):
+        return shared
     phase = FmFusedPlan("phase", PHASE_TILE, T)
     if (D >= KERNEL_WARPS and fm_fused_smem(T, D, phase) <= SMEM_LIMIT
             and grid(phase) >= PHASE_MIN_BLOCKS):
@@ -163,8 +199,9 @@ def fused_fm_demod_plain(x_ext, taps, D: int, inc_u32, phase0_u32, gain: float, 
 
 def launch_args(lib, history, x, taps, D: int, inc_u32: int, phase0_u32, gain: float, M: int,
                 plan: FmFusedPlan, out: torch.Tensor, phase_offset: int = 0) -> tuple:
-    """The arguments both C entry points share, up to the plan, after the
-    checks: ``tpusdr_fm_fused(*head, out, dev, stream)``.  A tensor
+    """The arguments both C entry points share, up to the plan and its grid
+    (``fm_fused_grid``), after the checks: ``tpusdr_fm_fused(*head, out,
+    dev, stream)``.  A tensor
     ``phase0_u32`` (0-d int64 on x's device) goes by pointer, read by the
     kernel when it runs, with ``phase_offset`` added by value; a host int
     goes by value with a null pointer.  In the channel form the C
@@ -214,6 +251,7 @@ def launch_args(lib, history, x, taps, D: int, inc_u32: int, phase0_u32, gain: f
         form,
         plan.tile,
         plan.chunk,
+        fm_fused_grid(T, D, M, C or 1, plan),
     )
     return head, (out.data_ptr(), dev, stream)
 
@@ -230,7 +268,7 @@ def _launch(history, x, taps, D, inc_u32, phase0_u32, gain, M, phase_offset):
     plan = fm_fused_plan(taps.shape[-1], D, M, C or 1)
     head, tail = launch_args(lib, history, x, taps, D, inc_u32, phase0_u32, gain, M, plan, out, phase_offset)
     check_launch(lib.tpusdr_fm_fused(*head, *tail), "fm_fused")
-    return out
+    return out, plan
 
 
 def fused_fm_demod(x_ext: torch.Tensor, taps, decimation: int, inc_u32: int, phase0_u32, gain: float,
@@ -260,9 +298,11 @@ def fused_fm_demod(x_ext: torch.Tensor, taps, decimation: int, inc_u32: int, pha
     if M <= 0:
         return torch.zeros((0,) if C is None else (C, 0), dtype=torch.float32, device=x_ext.device)
     if on_cuda(x_ext, history, taps):
-        y = _launch(history, x_ext, taps, D, inc_u32, phase0_u32, gain, M, phase_offset)
+        y, plan = _launch(history, x_ext, taps, D, inc_u32, phase0_u32, gain, M, phase_offset)
         fused_fm_demod.launches += 1
         fused_fm_demod.channel_rows += C or 1
+        if plan.form == "shared":
+            fused_fm_demod.shared_rows += C
         return y
     return fused_fm_demod_plain(x_ext, taps, D, inc_u32, phase0_u32, gain, M, history=history,
                                 phase_offset=phase_offset)
@@ -270,3 +310,4 @@ def fused_fm_demod(x_ext: torch.Tensor, taps, decimation: int, inc_u32: int, pha
 
 fused_fm_demod.launches = 0
 fused_fm_demod.channel_rows = 0
+fused_fm_demod.shared_rows = 0

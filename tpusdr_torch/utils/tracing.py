@@ -487,7 +487,8 @@ class Tracer:
         ``RunStats``: blocks, samples, the step's captures and eager ticks)
         and the kernel wrappers' launches, since each joined: ``launches``
         by wrapper, and each other counter of the wrappers
-        (``kernels.COUNTERS``: ``channel_rows``) where one moved."""
+        (``kernels.COUNTERS``: ``channel_rows``, ``shared_rows``, ``rows``)
+        where one moved."""
         out: dict = {}
         for obj, fields, base in list(self._counted):
             for f, b in zip(fields, base):
